@@ -11,9 +11,9 @@ os.environ.setdefault("XLA_FLAGS",
 
 import jax  # noqa: E402
 
-# GP_EXAMPLES_CPU=1 forces the simulated CPU mesh even when a TPU
-# plugin is registered (useful when the one real chip is busy)
-if os.environ.get("GP_EXAMPLES_CPU") or jax.default_backend() != "tpu":
+# GP_EXAMPLES_CPU=1 forces the simulated CPU mesh even when a GPU is
+# present
+if os.environ.get("GP_EXAMPLES_CPU") or jax.default_backend() != "gpu":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 

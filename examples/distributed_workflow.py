@@ -1,7 +1,7 @@
 """Distributed training + serving walkthrough.
 
-Runs on any device set: a TPU slice, or (as here, for a laptop/CI) a
-simulated 8-device CPU mesh. The exact same shard_map programs run in
+Runs on any device set: the GPUs of one host, or (as here, for a
+laptop/CI) a simulated 8-device CPU mesh. The exact same shard_map programs run in
 either case — that is the point.
 
   python examples/distributed_workflow.py
@@ -14,9 +14,9 @@ os.environ.setdefault("XLA_FLAGS",
 
 import jax  # noqa: E402
 
-# GP_EXAMPLES_CPU=1 forces the simulated CPU mesh even when a TPU
-# plugin is registered (useful when the one real chip is busy)
-if os.environ.get("GP_EXAMPLES_CPU") or jax.default_backend() != "tpu":
+# GP_EXAMPLES_CPU=1 forces the simulated CPU mesh even when a GPU is
+# present
+if os.environ.get("GP_EXAMPLES_CPU") or jax.default_backend() != "gpu":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
@@ -32,7 +32,7 @@ from gp_ss_ak_tpu.parallel import (  # noqa: E402
     shard_training_data,
 )
 
-dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+dtype = jnp.float32 if jax.default_backend() == "gpu" else jnp.float64
 
 # synthetic 3-D ore-grade-like problem
 rng = np.random.default_rng(0)

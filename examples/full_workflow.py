@@ -1,5 +1,5 @@
 """End-to-end example: the reference's train/test workflow plus the
-TPU-native extensions (serving, Bayes, ensembles, distributed).
+extensions (serving, Bayes, ensembles, distributed).
 
 Run anywhere (CPU ok): python examples/full_workflow.py
 """

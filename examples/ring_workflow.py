@@ -21,7 +21,7 @@ os.environ.setdefault("XLA_FLAGS",
 
 import jax  # noqa: E402
 
-if os.environ.get("GP_EXAMPLES_CPU") or jax.default_backend() != "tpu":
+if os.environ.get("GP_EXAMPLES_CPU") or jax.default_backend() != "gpu":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 

@@ -1,7 +1,7 @@
-"""gp_ss_ak_tpu — a TPU-native Gaussian-process inference engine.
+"""gp_ss_ak_tpu — a JAX Gaussian-process inference engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-GP_SS_AK reference (C++/Armadillo, see /root/reference): anisotropic
+GP_SS_AK reference (C++/Armadillo): anisotropic
 exponential-kernel GP regression for ore-grade estimation, with
 
 - symmetric standardization of inputs/targets (the "SS"),
@@ -12,7 +12,8 @@ exponential-kernel GP regression for ore-grade estimation, with
   correctness oracle in tests, not as code),
 - bound-constrained L-BFGS-B / SCG hyperparameter optimization,
 - posterior mean/variance serving, Gauss-Hermite warped predictions,
-- fused Pallas kernels for the Gram-matrix hot path,
+- a matrix-free streamed Gram product (a Triton kernel on the GPU)
+  for N past the dense memory wall,
 - mesh-sharded large-N inference (distributed kernel build + block
   Cholesky over jax.sharding meshes),
 - fully Bayesian hyperposteriors (HMC/NUTS) with vmapped chains, and

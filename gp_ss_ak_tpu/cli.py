@@ -34,7 +34,7 @@ import numpy as np
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gp_ss_ak_tpu",
-        description="TPU-native GP engine with the GP_SS_AK capability set",
+        description="JAX GP engine with the GP_SS_AK capability set",
     )
     p.add_argument("-v", "--verboseL", type=int, default=0, dest="verbose")
     p.add_argument("-pm", "--prepMethod", type=int, default=1, dest="prep",
@@ -66,17 +66,17 @@ def _build_parser() -> argparse.ArgumentParser:
                              "ring"),
                     help="NLML engine: dense Cholesky; the large-N "
                          "iterative engine (float32-only; materializes "
-                         "A and factors it exactly up to N~32k, "
-                         "GEMM-backed CG+SLQ to ~49k, streamed Pallas "
-                         "tiles beyond); 'dist' = row-sharded exact "
-                         "path over every visible device; 'ring' = "
-                         "panel-free ppermute ring route; or auto by "
-                         "data size")
+                         "A and factors it exactly while A and L fit "
+                         "in device memory, then GEMM-backed CG+SLQ, "
+                         "then streamed Gram tiles); 'dist' = "
+                         "row-sharded exact path over every visible "
+                         "device; 'ring' = panel-free ppermute ring "
+                         "route; or auto by data size")
     tr.add_argument("--segmented", action="store_true",
                     help="with --engine iterative: run the stream "
-                         "evaluator as bounded-time dispatches "
-                         "(optim/segmented.py) — for huge N on "
-                         "tunneled/preemptible workers")
+                         "evaluator as bounded dispatches "
+                         "(optim/segmented.py), with the solver state "
+                         "on the host between them")
     tr.add_argument("--float64", action="store_true",
                     help="fit in float64 (CPU backends; ignored by "
                          "the iterative engine, which is float32-only)")
@@ -118,6 +118,7 @@ def cmd_train(args) -> int:
     from gp_ss_ak_tpu.inference import predict
     from gp_ss_ak_tpu.model import default_model, save_model
     from gp_ss_ak_tpu.optim import fit
+    from gp_ss_ak_tpu.optim.api import resolve_engine
 
     dtype = _dtype(args)
     X, y = read_data(args.train_file)
@@ -213,10 +214,16 @@ def cmd_train(args) -> int:
               f"({res.n_iters} iters, {res.n_evals} evals)")
     save_model(fitted, args.model_name)
 
-    mu, var = predict(fitted.kernel, fitted.kernel_params,
-                      fitted.lik_hypers, jnp.asarray(Xs, dtype),
-                      jnp.asarray(ys, dtype), jnp.asarray(Xs, dtype),
-                      fitted.likelihood)
+    if resolve_engine(engine, fitted, Xs.shape[0]) == "iterative":
+        # past the dense wall: the matrix-free predictor, mean only
+        from gp_ss_ak_tpu.serve import IterativePredictor
+
+        mu, _ = IterativePredictor(fitted, Xs, ys)(Xs, mean_only=True)
+    else:
+        mu, _ = predict(fitted.kernel, fitted.kernel_params,
+                        fitted.lik_hypers, jnp.asarray(Xs, dtype),
+                        jnp.asarray(ys, dtype), jnp.asarray(Xs, dtype),
+                        fitted.likelihood)
     yh = unapply_y(stats, np.asarray(mu))
     mse = float(np.mean((y - yh) ** 2))
     var_y = float(np.mean((y - y.mean()) ** 2))
@@ -263,7 +270,8 @@ def cmd_test(args) -> int:
 
     engine = getattr(args, "engine", "auto")
     use_iter = (engine == "iterative"
-                or (engine == "auto" and Xtr.shape[0] > 32768))         and supports_iterative(model)
+                or (engine == "auto" and Xtr.shape[0] > 32768)) \
+        and supports_iterative(model)
     if engine == "iterative" and not supports_iterative(model):
         print("--engine iterative requires the flagship "
               "Sum([ExpAns, Bias]) model; falling back to dense",
@@ -327,10 +335,13 @@ def _plot(pred_file: str, model_name: str, y, yh, std) -> None:
 
 
 def main(argv=None) -> int:
+    from gp_ss_ak_tpu.utils.compile_cache import enable_compile_cache
+
     args = _build_parser().parse_args(argv)
     cmd = {"train": cmd_train, "test": cmd_test}.get(args.command)
     if cmd is None:
         return 2
+    enable_compile_cache()
     # Clean termination on user errors — the reference's
     # ErrorTermination -> exit(1) (ModelInf.h:84-88, Control.cpp:331-337)
     # without a Python traceback. `-v 3` keeps the full traceback for

@@ -4,8 +4,8 @@ The reference reaches these quantities through Laplace/IRLS Newton
 iteration with a Brent line search (GP_Utils.cpp:180-381); for a
 (warped-)Gaussian likelihood that machinery converges to exact GP
 regression in one Newton step, so this module implements the closed
-form directly — the idiomatic TPU design (one jitted function of
-(params, X, y); gradient via jax.grad).
+form directly: one jitted function of (params, X, y), gradient via
+jax.grad.
 
 Equivalence to the reference NLML (GP_Utils.cpp:1138-1162):
 with W = 1/sn2, B = I + sqrt(W) K sqrt(W) and alpha solving
@@ -29,8 +29,6 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from gp_ss_ak_tpu.ops.chol import cholesky as _cholesky
-
 from gp_ss_ak_tpu.inference import warping
 from gp_ss_ak_tpu.inference.likelihoods import Gaussian, WarpedGaussian
 from gp_ss_ak_tpu.inference.quadrature import gauss_hermite
@@ -46,7 +44,7 @@ class Posterior(NamedTuple):
     lgpy: jnp.ndarray   # (n,)   log g'(y) (zeros for plain Gaussian)
     y_max: jnp.ndarray = None  # max of RAW targets (rbf warp clamp)
     linv: jnp.ndarray = None   # optional (n, n) L^-1: serving fast path
-    # (turns the per-batch O(n^2 m) triangular solve into one MXU GEMM;
+    # (turns the per-batch O(n^2 m) triangular solve into one GEMM;
     # precomputed once by serve.Predictor)
     nugget: jnp.ndarray = None  # extra diagonal added by robust
     # factorization (utils/psd.py jitter-retry); None on the plain path
@@ -60,16 +58,12 @@ def _gram(kernel, params, X, jitter: float = 0.0):
 
 
 def factorize(kernel, params, lik_hypers, X, y, likelihood=Gaussian(),
-              jitter: float = 0.0, fused: bool = None,
-              robust: bool = False) -> Posterior:
+              jitter: float = 0.0, robust: bool = False) -> Posterior:
     """Build alpha and the Cholesky factor of A = K + sn2 I.
 
-    The flagship ExpAns+Bias model routes the A build through the
-    Pallas fused distance+exp kernel on TPU (ops/fused.py); others use
-    the generic XLA Gram path. Wrapped in full-f32 matmul precision:
-    XLA's blocked Cholesky and triangular solves are dot_general-based,
-    and the TPU's default bf16 MXU precision destroys
-    positive-definiteness at f32 dtypes.
+    Wrapped in full-f32 matmul precision: a float32 product may
+    otherwise run in TF32 on a GPU (about three decimal digits), which
+    is enough to push the Gram matrix off positive-definiteness.
 
     `robust=True` swaps the plain Cholesky for the jitter-retry
     factorization (utils/psd.py): on failure the diagonal nugget is
@@ -78,8 +72,6 @@ def factorize(kernel, params, lik_hypers, X, y, likelihood=Gaussian(),
     protocol (GP_Utils.cpp:884-887). The added nugget is reported in
     Posterior.nugget.
     """
-    from gp_ss_ak_tpu.ops.fused import maybe_fused_A
-
     n = X.shape[0]
     if isinstance(likelihood, WarpedGaussian):
         gy, lgpy = likelihood.effective_target(lik_hypers, y)
@@ -88,16 +80,14 @@ def factorize(kernel, params, lik_hypers, X, y, likelihood=Gaussian(),
         gy, lgpy = y, jnp.zeros_like(y)
         sn2 = likelihood.noise_variance(lik_hypers)
     with jax.default_matmul_precision("highest"):
-        A = maybe_fused_A(kernel, params, sn2, X, jitter, fused)
-        if A is None:
-            K = _gram(kernel, params, X, jitter)
-            A = K + sn2 * jnp.eye(n, dtype=K.dtype)
+        K = _gram(kernel, params, X, jitter)
+        A = K + sn2 * jnp.eye(n, dtype=K.dtype)
         if robust:
             from gp_ss_ak_tpu.utils.psd import robust_cholesky
 
             L, nugget = robust_cholesky(A)
         else:
-            L = _cholesky(A)  # NaN rows on failure -> NaN objective
+            L = jnp.linalg.cholesky(A)  # NaN rows on failure -> NaN objective
             nugget = None
         alpha = jax.scipy.linalg.cho_solve((L, True), gy)
     return Posterior(alpha=alpha, chol=L, gy=gy, lgpy=lgpy,
@@ -111,16 +101,16 @@ def _quad_logdet(A, gy):
     Backward: dA = ghat * 1/2 (A^-1 - alpha alpha^T), dgy = ghat *
     alpha — the reference's QW algebra (GP_Utils.cpp:1164-1220) as a
     custom VJP. Replaces reverse-mode through the Cholesky (whose
-    adjoint is panel-sequential on TPU) with one explicit A^-1 built
-    from two MXU-rich multi-RHS triangular solves.
+    adjoint is panel-sequential) with one explicit A^-1 built from a
+    multi-RHS triangular solve and one GEMM.
     """
-    L = _cholesky(A)
+    L = jnp.linalg.cholesky(A)
     alpha = jax.scipy.linalg.cho_solve((L, True), gy)
     return 0.5 * jnp.dot(gy, alpha) + jnp.sum(jnp.log(jnp.diagonal(L)))
 
 
 def _quad_logdet_fwd(A, gy):
-    L = _cholesky(A)
+    L = jnp.linalg.cholesky(A)
     alpha = jax.scipy.linalg.cho_solve((L, True), gy)
     val = 0.5 * jnp.dot(gy, alpha) + jnp.sum(jnp.log(jnp.diagonal(L)))
     return val, (L, alpha)
@@ -130,9 +120,9 @@ def _quad_logdet_bwd(res, ghat):
     L, alpha = res
     n = L.shape[0]
     eye = jnp.eye(n, dtype=L.dtype)
-    # A^-1 = L^-T L^-1 via ONE n-RHS triangular solve + one syrk GEMM:
-    # the syrk runs near MXU peak, unlike the second chained trsm that
-    # cho_solve(L, I) would issue.
+    # A^-1 = L^-T L^-1 via ONE n-RHS triangular solve + one syrk GEMM
+    # (instead of the second chained trsm that cho_solve(L, I) would
+    # issue).
     Linv = jax.scipy.linalg.solve_triangular(L, eye, lower=True)
     Ainv = jnp.matmul(Linv.T, Linv, precision=jax.lax.Precision.HIGHEST)
     Abar = (0.5 * ghat) * (Ainv - jnp.outer(alpha, alpha))
@@ -143,21 +133,18 @@ _quad_logdet.defvjp(_quad_logdet_fwd, _quad_logdet_bwd)
 
 
 def nlml(kernel, params, lik_hypers, X, y, likelihood=Gaussian(),
-         jitter: float = 0.0, fused: bool = None,
+         jitter: float = 0.0,
          grad_mode: str = "autodiff") -> jnp.ndarray:
     """Negative log marginal likelihood (the minimized objective; the
     reference prints it as "-logL", Opt_pars.cpp:282).
 
     grad_mode "autodiff": reverse-mode through the Cholesky (default).
     grad_mode "qw": the closed-form QW-contraction adjoint
-    (_quad_logdet) — same values, a different backward schedule that
-    can be faster on MXU-rich shapes.
+    (_quad_logdet) — same values, a different backward schedule.
     """
     n = X.shape[0]
     const = 0.5 * n * math.log(2.0 * math.pi)
     if grad_mode == "qw":
-        from gp_ss_ak_tpu.ops.fused import maybe_fused_A
-
         if isinstance(likelihood, WarpedGaussian):
             gy, lgpy = likelihood.effective_target(lik_hypers, y)
             sn2 = likelihood.noise_variance(lik_hypers)
@@ -165,14 +152,11 @@ def nlml(kernel, params, lik_hypers, X, y, likelihood=Gaussian(),
             gy, lgpy = y, jnp.zeros_like(y)
             sn2 = likelihood.noise_variance(lik_hypers)
         with jax.default_matmul_precision("highest"):
-            A = maybe_fused_A(kernel, params, sn2, X, jitter, fused)
-            if A is None:
-                K = _gram(kernel, params, X, jitter)
-                A = K + sn2 * jnp.eye(n, dtype=K.dtype)
+            K = _gram(kernel, params, X, jitter)
+            A = K + sn2 * jnp.eye(n, dtype=K.dtype)
             core = _quad_logdet(A, gy)
         return core + const - jnp.sum(lgpy)
-    post = factorize(kernel, params, lik_hypers, X, y, likelihood, jitter,
-                     fused)
+    post = factorize(kernel, params, lik_hypers, X, y, likelihood, jitter)
     half_logdet = jnp.sum(jnp.log(jnp.diagonal(post.chol)))
     fit = 0.5 * jnp.dot(post.gy, post.alpha)
     return fit + half_logdet + const - jnp.sum(post.lgpy)
@@ -197,33 +181,23 @@ def warped_predictive_mix(likelihood, lik_hypers, mu, var, ymax):
         Z,
         y_train_max=ymax,
     )
-    mu_w = G @ weights
-    var_w = ((G - mu[:, None]) ** 2) @ weights
+    prec = jax.lax.Precision.HIGHEST
+    mu_w = jnp.matmul(G, weights, precision=prec)
+    var_w = jnp.matmul((G - mu[:, None]) ** 2, weights, precision=prec)
     return mu_w, var_w
 
 
 def posterior_mean_var(kernel, params, lik_hypers, X, post: Posterior,
-                       Xstar, likelihood=Gaussian(), full_cov: bool = False,
-                       fused: bool = None):
+                       Xstar, likelihood=Gaussian(), full_cov: bool = False):
     """Latent+noise predictive mean/variance at Xstar.
 
     Mirrors posteriorMeanVar (GP_Utils.cpp:943-1080): cross-kernel,
     mu = kX^T alpha, whitened solve for the variance with a clamp at 0,
     then + observation noise; warped models push the Gaussian through
     g^{-1} with 20-node Gauss-Hermite quadrature.
-
-    The cross-Gram dispatches to the fused Pallas kernel (ops/fused.py)
-    for the flagship model on TPU when the tile is worth it; pass
-    fused=True/False to force either path.
     """
-    from gp_ss_ak_tpu.ops.fused import _on_tpu, fused_cross_gram
-
-    if fused is None:
-        fused = _on_tpu() and X.shape[0] * jnp.shape(Xstar)[0] >= 512 * 512
     with jax.default_matmul_precision("highest"):
-        kX = fused_cross_gram(kernel, params, X, Xstar) if fused else None
-        if kX is None:
-            kX = kernel.matrix(params, X, Xstar, same=False)   # (n, m)
+        kX = kernel.matrix(params, X, Xstar, same=False)   # (n, m)
         mu = kX.T @ post.alpha
         kdiag = kernel.diag(params, Xstar)
         if post.linv is not None:
@@ -232,12 +206,12 @@ def posterior_mean_var(kernel, params, lik_hypers, X, post: Posterior,
         else:
             v = jax.scipy.linalg.solve_triangular(post.chol, kX,
                                                   lower=True)
-    if full_cov:
-        Kss = kernel.matrix(params, Xstar, Xstar, same=True)
-        cov = Kss - v.T @ v
-        var = jnp.maximum(jnp.diagonal(cov), 0.0)
-    else:
-        var = jnp.maximum(kdiag - jnp.sum(v * v, axis=0), 0.0)
+        if full_cov:
+            Kss = kernel.matrix(params, Xstar, Xstar, same=True)
+            cov = Kss - v.T @ v
+            var = jnp.maximum(jnp.diagonal(cov), 0.0)
+        else:
+            var = jnp.maximum(kdiag - jnp.sum(v * v, axis=0), 0.0)
     sn2 = likelihood.noise_variance(lik_hypers)
     var = var + sn2
 
@@ -254,11 +228,9 @@ def posterior_mean_var(kernel, params, lik_hypers, X, post: Posterior,
 
 
 def predict(kernel, params, lik_hypers, X, y, Xstar, likelihood=Gaussian(),
-            jitter: float = 0.0, full_cov: bool = False,
-            fused: bool = None):
+            jitter: float = 0.0, full_cov: bool = False):
     """One-shot factorize + predict (the reference's test-mode flow,
     gp_ss_ak.cpp:382-409: load hypers, rebuild alpha/chol, predict)."""
-    post = factorize(kernel, params, lik_hypers, X, y, likelihood, jitter,
-                     fused)
+    post = factorize(kernel, params, lik_hypers, X, y, likelihood, jitter)
     return posterior_mean_var(kernel, params, lik_hypers, X, post, Xstar,
                               likelihood, full_cov)

@@ -1,10 +1,10 @@
 """Matrix-free iterative inference: CG solves + stochastic Lanczos
 logdet — exact-GP NLML and gradients at N where the kernel matrix
-cannot exist in memory (GPyTorch's BBMM recipe, rebuilt TPU-first).
+cannot exist in memory (GPyTorch's BBMM recipe).
 
 Compute structure per NLML evaluation:
-  alpha    : CG on A v = y           (matvecs via the Pallas
-                                      streaming kernel, ops/matvec.py)
+  alpha    : CG on A v = y           (matvecs via the streamed Gram
+                                      product, ops/matvec.py)
   logdet A : m-probe stochastic Lanczos quadrature — k Lanczos steps
              per Rademacher probe, logdet ~ mean_z ||z||^2 e1' log(T) e1
   gradient : Hutchinson trace + fit-term contractions,
@@ -16,16 +16,16 @@ Compute structure per NLML evaluation:
 Everything is f32; CG tolerance and probe/step counts trade accuracy
 for time explicitly. For N <= a few thousand prefer the dense path
 (inference/gaussian.py) — this module exists for the 10^4..10^5+
-single-chip regime (BASELINE config 3 without a pod).
+single-device regime (BASELINE config 3 on one card).
 
-Operator modes (`choose_mode`): the streamed Pallas operator pays one
-full O(N^2) distance+exp pass per matvec, and a CG+SLQ evaluation
-makes ~50-70 of them. Whenever A fits in HBM it is materialized ONCE
-per hyperparameter setting instead:
+Operator modes (`choose_mode`): the streamed operator pays one full
+O(N^2) distance+exp pass per matvec, and a CG+SLQ evaluation makes
+~50-70 of them. Whenever A fits in device memory it is materialized
+ONCE per hyperparameter setting instead:
   chol      (N <= ~32k) exact Cholesky — exact alpha/logdet, exact
             Hutchinson probe solves; no CG, no SLQ bias.
   gemm      (N <= ~49k) A in f32; PCG + SLQ matvecs become GEMMs at
-            the HBM-bandwidth floor.
+            the memory-bandwidth floor.
   stream    beyond — the original tile-streaming path (accurate).
   gemm_bf16 opt-in only (never auto): A in bf16 — solves are
             residual-corrected and usable, but the quantization noise
@@ -109,13 +109,13 @@ def pivoted_cholesky(Xm: jnp.ndarray, sigma, bias, rank: int):
         i = jnp.argmax(d)
         c = column(i)
         Li = jnp.take(L, i, axis=0)                         # (rank,)
-        # HIGHEST precision is load-bearing: on TPU the default bf16
-        # matmul's absolute error (~0.004 sqrt(k)) lands inside the
-        # cancellation c - L Li and is then amplified by the shrinking
-        # pivot 1/sqrt(d_i) — at rank >= ~512 the later columns come
-        # out garbage, and the resulting P = L L^T + sn2 I (still SPD)
-        # has huge spurious eigenvalues that floor PCG at 1e-1-ish
-        # relative residuals (the round-3 65k/100k stall wall)
+        # HIGHEST precision is load-bearing: a reduced-precision
+        # product's absolute error (TF32 on a GPU keeps ~3 digits)
+        # lands inside the cancellation c - L Li and is then amplified
+        # by the shrinking pivot 1/sqrt(d_i) — at rank >= ~512 the
+        # later columns come out garbage, and the resulting
+        # P = L L^T + sn2 I (still SPD) has huge spurious eigenvalues
+        # that floor PCG at 1e-1-ish relative residuals
         l = (c - jnp.matmul(L, Li, precision=jax.lax.Precision.HIGHEST)) \
             / jnp.sqrt(jnp.maximum(d[i], 1e-30))
         l = jnp.where(d[i] > 1e-30, l, jnp.zeros_like(l))
@@ -220,7 +220,7 @@ def precond_sqrt(L: jnp.ndarray, sn2):
       P          = sn2 (I - Q Q^T) + Q diag(S + sn2) Q^T
       P^(-1/2) v = (v - Q Q^T v)/sqrt(sn2) + Q diag(1/sqrt(S+sn2)) Q^T v
       logdet P   = (n - k') log sn2 + sum_{S_i>0} log(S_i + sn2)
-    All O(n k) GEMMs — MXU food. Returns (apply_inv_sqrt, logdet_P)."""
+    All O(n k) GEMMs. Returns (apply_inv_sqrt, logdet_P)."""
     Q, inv_sqrt_eig, logdet_P = precond_sqrt_pieces(L, sn2)
 
     def apply_inv_sqrt(v):
@@ -270,8 +270,7 @@ def pcg_solve(matvec: Callable, b: jnp.ndarray, pinv: Callable,
 #: bcg stops after this many consecutive iterations in which NO
 #: column improved its best residual: a column whose f32-achievable
 #: residual floor sits above `tol` would otherwise spin the whole
-#: lock-step solve to `maxiter` (the round-2 49k/65k ladder rows
-#: burned 800 iterations this way) while Xbest no longer changes.
+#: lock-step solve to `maxiter` while Xbest no longer changes.
 BCG_STALL_ITERS = 25
 
 
@@ -406,10 +405,9 @@ def whitened_solve_info(op_matmat: Callable, L: jnp.ndarray, sn2,
     Mathematically identical to PCG with P — numerically NOT: the
     implicit PCG recurrence (cross inner products r'z with z = P^-1 r)
     breaks down in f32 at the flagship conditioning (kappa(A) ~
-    lambda_1/sn2 ~ 10^6 at N ~ 10^5): measured at N=65536/rank 1024,
-    PCG oscillated at 0.2 relative residual for 800 iterations
-    (restarts included) on instances where this whitened solve
-    converges in 58. CG here runs on kappa(A~) ~ (lambda_k + sn2)/sn2
+    lambda_1/sn2 ~ 10^6 at N ~ 10^5): it can oscillate at a large
+    relative residual for hundreds of iterations on instances where
+    this whitened solve converges in tens. CG here runs on kappa(A~) ~ (lambda_k + sn2)/sn2
     ~ O(100) — comfortably inside f32's stability envelope — and the
     whitened residual is the natural norm for the NLML quadratic form
     (value error ~ ||r~||^2 / lambda_min(A~)).
@@ -628,18 +626,17 @@ class IterativeGP(NamedTuple):
     sn2: jnp.ndarray
 
 
-#: operator-mode size thresholds (auto selection), sized for a 16 GB
-#: v5e chip with headroom for solver state:
+#: operator-mode size thresholds (auto selection) for a device with
+#: 16 GB of memory, with headroom for solver state:
 #:   chol : A + L both live in f32 during the factorization (8 N^2 B)
 #:   gemm : A in f32 (4 N^2 B)  /  gemm_bf16 : A in bf16 (2 N^2 B)
-#: When the local device reports its HBM size (memory_stats), the
-#: thresholds are rescaled by sqrt(hbm / 16 GB) so smaller-HBM chips
-#: don't OOM under auto (ADVICE r2, iterative.py:405); devices that
-#: don't report (CPU, some tunnels) keep the 16 GB defaults.
+#: When the local device reports its memory limit (memory_stats), the
+#: thresholds are rescaled by sqrt(limit / 16 GB); devices that don't
+#: report (CPU) keep the 16 GB values.
 CHOL_MATERIALIZE_MAX_N = 32768
 GEMM_MATERIALIZE_MAX_N_F32 = 49152
 GEMM_MATERIALIZE_MAX_N_BF16 = 73728
-_REFERENCE_HBM_BYTES = 16e9
+_REFERENCE_MEM_BYTES = 16e9
 
 #: the achievable relative residual of CG over a bf16-stored operator:
 #: cg_tol below this just stalls PCG to cg_maxiter (ADVICE r2 medium)
@@ -648,13 +645,13 @@ BF16_CG_TOL_FLOOR = 1e-3
 
 @functools.lru_cache(maxsize=1)
 def _mode_thresholds():
-    """(chol_max, gemm_max, bf16_max), HBM-scaled when reported."""
+    """(chol_max, gemm_max, bf16_max), memory-scaled when reported."""
     scale = 1.0
     try:
         stats = jax.local_devices()[0].memory_stats() or {}
         limit = stats.get("bytes_limit")
         if limit:
-            scale = math.sqrt(limit / _REFERENCE_HBM_BYTES)
+            scale = math.sqrt(limit / _REFERENCE_MEM_BYTES)
     except Exception:
         pass
     def rnd(x):
@@ -668,7 +665,7 @@ def choose_mode(n: int, mode: str = "auto") -> str:
     """Resolve the engine mode for problem size n.
 
     Modes:
-      chol      — materialize A (fused Pallas build), exact Cholesky:
+      chol      — materialize A (plain Gram build), exact Cholesky:
                   exact alpha/logdet, Hutchinson gradient with EXACT
                   probe solves (no CG, no SLQ bias).
       gemm      — materialize A in f32; PCG + SLQ run as GEMMs.
@@ -677,12 +674,11 @@ def choose_mode(n: int, mode: str = "auto") -> str:
                   norm ~ 0.002 sqrt(N) — at the flagship noise
                   (sn2 = 0.016) that swamps the smallest eigenvalues
                   of A beyond N ~ 10^3, pushing A_bf16 indefinite and
-                  biasing the SLQ logdet by O(100s of nats) (measured
-                  -656 vs -330 exact at N = 4096 on a v5e). CG solves
+                  biasing the SLQ logdet by O(100s of nats). CG solves
                   remain residual-corrected and fit-grade; the VALUE
                   is not trustworthy. Use for gradient-only work.
-      stream    — never materialize: Pallas streamed Gram tiles per
-                  matvec (the accurate option beyond ~49k on one chip).
+      stream    — never materialize: streamed Gram tiles per matvec
+                  (ops/matvec.py; the option past the gemm size).
     """
     if mode != "auto":
         valid = ("chol", "gemm", "gemm_bf16", "stream")
@@ -702,17 +698,14 @@ def _effective_cg_tol(cg_tol: float, mode: str) -> float:
         else cg_tol
 
 
-def _flagship_operator(it_gp: IterativeGP, tm=512, tn=512,
-                       interpret=None, mode: str = "stream"):
+def _flagship_operator(it_gp: IterativeGP, mode: str = "stream"):
     from gp_ss_ak_tpu.ops.matvec import MaterializedOperator, MatvecOperator
 
     if mode in ("gemm", "gemm_bf16"):
         dt = jnp.float32 if mode == "gemm" else jnp.bfloat16
         return MaterializedOperator(it_gp.Xm, it_gp.sigma, it_gp.bias,
-                                    it_gp.sn2, store_dtype=dt,
-                                    interpret=interpret)
-    return MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                          tm=tm, tn=tn, interpret=interpret)
+                                    it_gp.sn2, store_dtype=dt)
+    return MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
 
 
 def make_preconditioner(it_gp: IterativeGP, rank=None):
@@ -728,15 +721,13 @@ def auto_precond_rank(n: int) -> int:
     """N-scaled default preconditioner rank. The flagship ExpAns
     (Matern-1/2) kernel's eigenvalues decay only polynomially
     (lambda_k ~ k^(-4/3) for 3-D inputs), so a FIXED rank that works
-    at N=4k leaves kappa ~ lambda_k/sn2 huge at 50k+ — measured: the
-    rank-64 PCG hit maxiter=800 at N=49152 (11.3 s/eval) while rank
-    kept pace with N converges in a few hundred.
+    at N=4k leaves kappa ~ lambda_k/sn2 huge at 50k+: a rank-64 PCG
+    can run to maxiter=800 at N ~ 50k, while a rank that keeps pace
+    with N converges in a few hundred.
 
     The rank is cheap relative to what it saves: each doubling cuts
-    whitened-CG iterations ~1.5x (kappa of the whitened operator is
-    (lambda_k + sn2)/sn2; measured on-chip with the whitened route at
-    N=65536: 94/58/36 iters for ranks 512/1024/2048, N=100000:
-    116/71/44 — results.json["stream_tuning"]), the pivoted build is
+    whitened-CG iterations roughly 1.5x (kappa of the whitened
+    operator is (lambda_k + sn2)/sn2), the pivoted build is
     O(n k (d + k)) once per hyperparameter setting, and each
     P^(-1/2) apply is O(n k) — noise next to the O(n^2) operator pass
     it replaces. So the rule leans high: every CG iteration saved is
@@ -754,8 +745,7 @@ def _pivchol(it_gp: IterativeGP, rank):
 
 def nlml_iterative(it_gp: IterativeGP, y, key, cg_tol: float = 1e-4,
                    cg_maxiter: int = 800, probes: int = 16,
-                   lanczos_iters: int = 32, tm: int = 512, tn: int = 512,
-                   interpret=None, precond_rank=None,
+                   lanczos_iters: int = 32, precond_rank=None,
                    mode: str = "auto"):
     """Matrix-free NLML: 1/2 y'alpha + 1/2 slq_logdet + n/2 log 2pi.
     Returns (value, alpha, cg_iters).
@@ -778,12 +768,12 @@ def nlml_iterative(it_gp: IterativeGP, y, key, cg_tol: float = 1e-4,
     n = y.shape[0]
     mode = choose_mode(n, mode)
     if mode == "chol":
-        Lc, half_logdet = _materialized_chol(it_gp, interpret)
+        Lc, half_logdet = _materialized_chol(it_gp)
         alpha = jax.scipy.linalg.cho_solve((Lc, True), y)
         val = 0.5 * jnp.dot(y, alpha) + half_logdet \
             + 0.5 * n * math.log(2.0 * math.pi)
         return val, alpha, jnp.asarray(0)
-    op = _flagship_operator(it_gp, tm, tn, interpret, mode=mode)
+    op = _flagship_operator(it_gp, mode=mode)
     cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
     if L is None:
@@ -805,17 +795,15 @@ def nlml_iterative(it_gp: IterativeGP, y, key, cg_tol: float = 1e-4,
 def grad_iterative(it_gp: IterativeGP, y, key, alpha=None,
                    probes: int = 8, cg_tol: float = 1e-4,
                    cg_maxiter: int = 800, chunk: int = 1024,
-                   tm: int = 512, tn: int = 512, interpret=None,
                    precond_rank=None, mode: str = "auto"):
     """d NLML / d (sigma, bias, sn2, Xm) via Hutchinson + fit term:
 
       grad = 1/2 E_z [ (A^-1 z)' dA z ]  -  1/2 alpha' dA alpha
 
     with the A-dependence differentiated through a chunked dense row
-    build (kernel math identical to the Pallas forward).
+    build (kernel math identical to the streamed forward).
 
-    `mode` follows `choose_mode` like the fused path (VERDICT r2 weak
-    #3 — the standalone used to always stream): "chol" does exact
+    `mode` follows `choose_mode` like the fused path: "chol" does exact
     cho_solve probe solves; "gemm"/"gemm_bf16" run the batched PCG over
     the materialized operator."""
     y = jnp.asarray(y, jnp.float32)
@@ -824,7 +812,7 @@ def grad_iterative(it_gp: IterativeGP, y, key, alpha=None,
     Z = jax.random.rademacher(
         key, (n, probes), jnp.float32).astype(jnp.float32)
     if mode == "chol":
-        L, _ = _materialized_chol(it_gp, interpret)
+        L, _ = _materialized_chol(it_gp)
         if alpha is None:
             sols = jax.scipy.linalg.cho_solve(
                 (L, True), jnp.concatenate([y[:, None], Z], axis=1))
@@ -832,7 +820,7 @@ def grad_iterative(it_gp: IterativeGP, y, key, alpha=None,
         else:
             ws = jax.scipy.linalg.cho_solve((L, True), Z).T
         return _grad_contraction(it_gp, alpha, ws, Z.T, chunk)
-    op = _flagship_operator(it_gp, tm, tn, interpret, mode=mode)
+    op = _flagship_operator(it_gp, mode=mode)
     cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
 
@@ -856,7 +844,7 @@ def _grad_contraction(it_gp: IterativeGP, alpha, ws, zs, chunk: int):
     """The differentiable part of the gradient: given the solved
     alpha = A^-1 y and probe pairs (w = A^-1 z, z), contract against
     dA/dtheta through a chunked dense row build (O(chunk x N) live
-    memory under remat; kernel math identical to the Pallas forward).
+    memory under remat; kernel math identical to the streamed forward).
 
     grad = d/dtheta [ 1/2 mean_z w' A(theta) z - 1/2 alpha' A alpha ]
          = d/dtheta [ 1/2 sum_j c_j U[:,j]' (A V)[:,j] ]
@@ -896,8 +884,8 @@ def _grad_contraction(it_gp: IterativeGP, alpha, ws, zs, chunk: int):
 
         def one(c):
             # (chunk, m+1) = rows of A V, contracted against U rows;
-            # f32 MXU precision — the gradient pass is one of ~100
-            # operator passes per eval, so the 3-pass cost is noise
+            # full f32 precision (no TF32) — the gradient pass is one
+            # of ~100 operator passes per eval
             AVc = jnp.matmul(row_chunk(c), Vp,
                              precision=jax.lax.Precision.HIGHEST)
             Uc = lax.dynamic_slice_in_dim(Up, c * chunk, chunk)
@@ -910,32 +898,30 @@ def _grad_contraction(it_gp: IterativeGP, alpha, ws, zs, chunk: int):
     return jax.grad(contraction)(theta0)
 
 
-def _materialized_chol(it_gp: IterativeGP, interpret=None):
-    """Build A with the fused Pallas Gram kernel and factor it.
+def _materialized_chol(it_gp: IterativeGP):
+    """Build A with the plain Gram (ops/gram.py) and factor it.
     Returns (L, half_logdet). A is dead after the factorization, so
-    peak HBM is A + L (8 N^2 bytes) — N <= ~32k on a 16 GB chip."""
-    from gp_ss_ak_tpu.ops.pairwise import expans_bias_gram
+    peak memory is A + L (8 N^2 bytes)."""
+    from gp_ss_ak_tpu.ops.gram import expans_bias_gram
 
-    A = expans_bias_gram(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                         interpret=interpret)
+    A = expans_bias_gram(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
     L = jnp.linalg.cholesky(A)
     half_logdet = jnp.sum(jnp.log(jnp.diagonal(L)))
     return L, half_logdet
 
 
 def nlml_and_grad_chol(it_gp: IterativeGP, y, key_trace,
-                       probes: int = 16, chunk: int = 1024,
-                       interpret=None):
+                       probes: int = 16, chunk: int = 1024):
     """Materialized exact-Cholesky NLML + Hutchinson gradient.
 
-    alpha and logdet are EXACT (dense factorization of the fused-built
+    alpha and logdet are EXACT (dense factorization of the materialized
     A); the only stochastic piece is the Hutchinson estimate of
     tr(A^-1 dA) in the gradient, whose probe solves are exact
     triangular solves (cho_solve) instead of CG. Compared to the
     CG+SLQ path this removes the SLQ logdet bias entirely and replaces
-    ~50-70 O(N^2) operator passes with one fused Gram build + one
-    O(N^3/3) Cholesky — the fastest and most accurate option whenever
-    A + L fit in HBM (N <= ~32k in f32 on a v5e).
+    ~50-70 O(N^2) operator passes with one Gram build + one O(N^3/3)
+    Cholesky — the most accurate option whenever A + L fit in device
+    memory.
 
     Returns (value, (d_sigma, d_bias, d_sn2, d_Xm), alpha).
     A failed factorization propagates NaN into the value — the
@@ -944,7 +930,7 @@ def nlml_and_grad_chol(it_gp: IterativeGP, y, key_trace,
     """
     y = jnp.asarray(y, jnp.float32)
     n = y.shape[0]
-    L, half_logdet = _materialized_chol(it_gp, interpret)
+    L, half_logdet = _materialized_chol(it_gp)
     Z = jax.random.rademacher(
         key_trace, (n, probes), jnp.float32).astype(jnp.float32)
     rhs = jnp.concatenate([y[:, None], Z], axis=1)
@@ -959,9 +945,7 @@ def nlml_and_grad_chol(it_gp: IterativeGP, y, key_trace,
 def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
                             cg_tol: float = 1e-4, cg_maxiter: int = 800,
                             probes: int = 8, lanczos_iters: int = 32,
-                            chunk: int = 1024, tm: int = 512,
-                            tn: int = 512, interpret=None,
-                            precond_rank=None,
+                            chunk: int = 1024, precond_rank=None,
                             slq_probes: int = 64,
                             mode: str = "auto"):
     """Fused NLML + gradient, sharing every expensive intermediate:
@@ -973,16 +957,16 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
         extra passes over the streamed Gram tiles.
 
     `slq_probes` sets the logdet probe count separately from the
-    gradient's `probes`: the batched Lanczos cost is flat in its probe
-    count (the Gram-tile streaming dominates; measured 0.064 s/call at
-    N=8192 for 8 AND 64 probes), so the logdet gets many probes for
-    free while each gradient probe adds a column to the PCG solve.
+    gradient's `probes`: the batched Lanczos cost is nearly flat in
+    its probe count (the Gram-tile streaming dominates), so the logdet
+    gets many probes cheaply while each gradient probe adds a column
+    to the PCG solve.
 
     `mode` picks the operator strategy (see `choose_mode`): "chol"
     short-circuits to `nlml_and_grad_chol` (exact value, exact probe
     solves); "gemm"/"gemm_bf16" materialize A once and run the same
     CG+SLQ flow at GEMM speed; "stream" never materializes. "auto"
-    resolves by N against the 16 GB-chip thresholds.
+    resolves by N against the memory-scaled thresholds.
 
     Returns (value, (d_sigma, d_bias, d_sn2, d_Xm), stats) with
     stats = IterStats(cg_iters, rel_residual, alpha): rel_residual is
@@ -995,12 +979,11 @@ def nlml_and_grad_iterative(it_gp: IterativeGP, y, key_logdet, key_trace,
     mode = choose_mode(n, mode)
     if mode == "chol":
         val, grads, alpha = nlml_and_grad_chol(
-            it_gp, y, key_trace, probes=probes, chunk=chunk,
-            interpret=interpret)
+            it_gp, y, key_trace, probes=probes, chunk=chunk)
         return val, grads, IterStats(jnp.asarray(0),
                                      jnp.asarray(0.0, jnp.float32),
                                      alpha)
-    op = _flagship_operator(it_gp, tm, tn, interpret, mode=mode)
+    op = _flagship_operator(it_gp, mode=mode)
     cg_tol = _effective_cg_tol(cg_tol, mode)
     L = _pivchol(it_gp, precond_rank)
     Z = jax.random.rademacher(

@@ -6,7 +6,7 @@ iteration on the latent alpha with a Brent line search
 (warped-)Gaussian likelihoods that fixed point is available in closed
 form (see inference/gaussian.py), but the framework keeps the general
 machinery so non-conjugate likelihoods (Student-t, Poisson, ...) can
-ride the same TPU path.
+ride the same jitted path.
 
 Differences from the reference, by design:
 - likelihood derivatives (dlp, d2lp) come from jax.grad of the
@@ -27,8 +27,6 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-from gp_ss_ak_tpu.ops.chol import cholesky as _cholesky
 from jax import lax
 
 
@@ -74,7 +72,7 @@ def fit_latent(K: jnp.ndarray, y: jnp.ndarray, log_prob: Callable,
         b = W * (f - mean) + dlp
         Kb = K @ b
         B = jnp.eye(n, dtype=K.dtype) + (sw[:, None] * sw[None, :]) * K
-        L = _cholesky(B)
+        L = jnp.linalg.cholesky(B)
         t = jax.scipy.linalg.cho_solve((L, True), sw * Kb)
         dalpha = b - sw * t - alpha
         return dalpha
@@ -135,7 +133,7 @@ def predict_latent(kernel, params, X, y, log_prob: Callable, Xstar,
     W = jnp.maximum(-d2lp, 0.0)
     sw = jnp.sqrt(W)
     B = jnp.eye(n, dtype=K.dtype) + (sw[:, None] * sw[None, :]) * K
-    L = _cholesky(B)
+    L = jnp.linalg.cholesky(B)
     kX = kernel.matrix(params, X, Xstar, same=False)
     mu = kX.T @ dlp
     v = jax.scipy.linalg.solve_triangular(L, sw[:, None] * kX, lower=True)
@@ -155,5 +153,5 @@ def nlml(K: jnp.ndarray, y: jnp.ndarray, log_prob: Callable,
     W = jnp.maximum(-d2lp, 0.0)
     sw = jnp.sqrt(W)
     B = jnp.eye(n, dtype=K.dtype) + (sw[:, None] * sw[None, :]) * K
-    L = _cholesky(B)
+    L = jnp.linalg.cholesky(B)
     return psi + jnp.sum(jnp.log(jnp.diagonal(L)))

@@ -2,8 +2,8 @@
 
 Capability beyond the reference: the exact engine scales to large N
 by sharding the N x N matrix over a mesh (gp_ss_ak_tpu.parallel); this
-module is the complementary SINGLE-CHIP route — O(n m^2) time and
-O(n m) memory for m inducing points, all dense MXU matmuls, vmap- and
+module is the complementary SINGLE-DEVICE route — O(n m^2) time and
+O(n m) memory for m inducing points, all dense matmuls, vmap- and
 shard-friendly (the n axis of Kmn can be row-sharded with a psum over
 the two n-reductions).
 

@@ -1,6 +1,6 @@
 """Pairwise-distance engines.
 
-TPU-first re-design of the reference distance functions
+Re-design of the reference distance functions
 (`EuclDist` Kernel.cpp:1343-1368, `MahaDist` Kernel.cpp:1370-1435,
 `mlA` Kernel.cpp:1437-1441): recentre both point sets by their combined
 mean (numerical conditioning only — distances are translation
@@ -9,9 +9,9 @@ Gram expansion ||a||^2 + ||b||^2 - 2 a.b with a clamp of tiny negative
 values to zero.
 
 All functions are pure and jit/vmap/grad-safe. The O(N^2) Gram
-expansion maps onto one MXU matmul; the Pallas fused path in
-`gp_ss_ak_tpu.ops.pairwise` computes the same quantity tile-by-tile
-without materializing the distance matrix in HBM.
+expansion maps onto one matmul; the flagship model's materialized and
+streamed builds (`gp_ss_ak_tpu.ops.gram`, `gp_ss_ak_tpu.ops.matvec`)
+compute the same quantity as a broadcast difference instead.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def gram_sqdist(A1: jnp.ndarray, A2: jnp.ndarray,
                 same: bool = False) -> jnp.ndarray:
     """||a_i - b_j||^2 for every pair via the Gram expansion, clamped >= 0.
 
-    The -2 A1 A2^T term is the MXU-friendly part; the clamp mirrors
+    The -2 A1 A2^T term is one matrix product; the clamp mirrors
     Kernel.cpp:1366-1367 (float cancellation can give tiny negatives).
     With ``same=True`` (X1 is X2) the diagonal is set to exactly zero:
     the Gram expansion leaves O(eps) round-off there, which sits on the
@@ -48,10 +48,10 @@ def gram_sqdist(A1: jnp.ndarray, A2: jnp.ndarray,
     """
     s1 = jnp.sum(A1 * A1, axis=-1, keepdims=True)  # (n, 1)
     s2 = jnp.sum(A2 * A2, axis=-1, keepdims=True)  # (m, 1)
-    # full-f32 MXU precision: the TPU default (bf16 multiplies) loses
-    # ~1e-2 absolute here, enough to make the Gram matrix indefinite
-    # and every downstream Cholesky NaN. d is tiny (3-4), so the cost
-    # of the 3-pass f32 matmul is negligible.
+    # full-f32 precision: a reduced-precision product (TF32 on a GPU)
+    # loses ~1e-3 relative here, enough to make the Gram matrix
+    # indefinite and every downstream Cholesky NaN. d is tiny (3-4), so
+    # the cost of the full-precision product is negligible.
     cross = jnp.matmul(A1, A2.T, precision=jax.lax.Precision.HIGHEST)
     d2 = s1 + s2.T - 2.0 * cross
     d2 = jnp.maximum(d2, 0.0)
@@ -121,7 +121,8 @@ def anisotropic_metric(params: dict, input_dim: int) -> jnp.ndarray:
     lam3 = jnp.stack(
         [params["inverseWidthx"], params["inverseWidthy"], params["inverseWidthz"]]
     ).astype(dtype)
-    M3 = (R3 * lam3[None, :]) @ R3.T
+    M3 = jnp.matmul(R3 * lam3[None, :], R3.T,
+                    precision=jax.lax.Precision.HIGHEST)
     if d == 3:
         return M3
     M = jnp.zeros((d, d), dtype)
@@ -138,8 +139,11 @@ def sq_mahalanobis(X1: jnp.ndarray, X2: jnp.ndarray, M: jnp.ndarray,
     Reference: `MahaDist` Kernel.cpp:1425-1434.
     """
     X1c, X2c = _recentre(X1, X2)
-    A1 = X1c @ M
-    A2 = X2c @ M
+    # full f32: in TF32 the map's ~1e-3 rounding depends on the centre,
+    # so row blocks mapped on different devices disagree and the
+    # assembled Gram matrix is no longer positive definite
+    A1 = jnp.matmul(X1c, M, precision=jax.lax.Precision.HIGHEST)
+    A2 = jnp.matmul(X2c, M, precision=jax.lax.Precision.HIGHEST)
     return gram_sqdist(A1, A2, same)
 
 

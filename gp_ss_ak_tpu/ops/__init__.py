@@ -1,15 +1,6 @@
-"""Pallas TPU kernels for the hot ops (fused Gram build)."""
+"""Gram-matrix hot ops: the plain-XLA Gram build (ops/gram.py) and the
+matrix-free streamed products (ops/matvec.py)."""
 
-from gp_ss_ak_tpu.ops.fused import (
-    fused_cross_gram,
-    fused_expans_bias_A,
-    maybe_fused_A,
-)
-from gp_ss_ak_tpu.ops.pairwise import expans_bias_gram
+from gp_ss_ak_tpu.ops.gram import expans_bias_gram, mapped_points
 
-__all__ = [
-    "expans_bias_gram",
-    "fused_expans_bias_A",
-    "fused_cross_gram",
-    "maybe_fused_A",
-]
+__all__ = ["expans_bias_gram", "mapped_points"]

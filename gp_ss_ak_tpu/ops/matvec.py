@@ -1,20 +1,36 @@
-"""Matrix-free Gram matvec: y = (s^2 exp(-||xi-xj||) ) v, K never built.
+"""Matrix-free Gram products: A V with A = s^2 exp(-dist) + bias + sn2 I,
+K never held in memory.
 
-At N = 100k the kernel matrix is 40 GB in f32 — beyond single-chip
-HBM. This Pallas kernel streams K tile-by-tile through VMEM: the
-points live TRANSPOSED as (dpad, N) (d on sublanes, N on lanes —
-3.2 MB at N=100k, so X and v stay resident in VMEM for every grid
-step), each grid program owns one output row-tile and loops over
-column tiles computing distances + exp + a (tm, tn) x (tn, 1) MXU
-accumulation in place.
+At N = 100k the kernel matrix is 40 GB in float32, so the large-N CG
+and Lanczos loops (inference/iterative.py) apply it tile by tile. Only
+the exponential part E_ij = exp(-||xi - xj||) is streamed; s^2, the
+rank-1 bias and the noise diagonal are applied outside in three XLA
+ops: A V = s^2 (E V) + bias 1 (1' V) + sn2 V.
 
-The bias and noise terms are rank-1/diagonal and added OUTSIDE in two
-XLA ops: y += bias * sum(v) + sn2 * v. The kernel fixes its own
-diagonal tile to exactly s^2 v_i (Gram round-off sits on the sqrt
-kink otherwise).
+Two routes compute E V, chosen by `stream_route(B)` from the backend
+and the width of V:
 
-Used by inference/iterative.py's CG loop. Forward-only (gradients use
-the chunked differentiable matvec there).
+  triton  (GPU, at most BB columns) a Pallas kernel compiled through
+          Triton. One program owns a (TM, BB) output block and loops
+          over all column tiles inside the kernel, so the E tile lives in registers from the
+          distance FMAs through sqrt/exp to the float32 product with
+          the V tile; nothing N^2-sized touches device memory.
+  xla     (wider V on a GPU, every V elsewhere) row blocks of E built
+          by the plain tile (ops/gram.py) and multiplied by V; each E
+          block is written to memory and read back by the product.
+
+The split by width is measured (PERF.md): the kernel's full-precision
+float32 product runs on the FMA units, so its time grows with the
+width of V, while the XLA route pays a fixed cost for writing E and
+hands the product to cuBLAS. The kernel wins for the CG solves (y plus
+a few probes) and loses for the 32- and 64-column blocks. For a single
+vector XLA turns the product into a reduction fused with the E build,
+which runs ~15% faster than the kernel but took minutes to compile on
+the card, so one vector stays on the kernel.
+
+Both compute squared distances as broadcast differences, so the
+diagonal entry is exactly exp(-0) = 1 and padding needs no masking:
+padded points carry zero rows of V.
 """
 
 from __future__ import annotations
@@ -24,152 +40,119 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from gp_ss_ak_tpu.ops.pairwise import _on_tpu, _round_up
+from gp_ss_ak_tpu.ops.gram import expans_bias_gram, sqdist
+
+#: Triton tile: rows per program and columns per inner-loop step
+TM = 64
+TN = 64
+#: V columns per program: the `pl.dot` minimum, and the widest V the
+#: kernel beats the XLA route on (see the module docstring)
+BB = 16
+NUM_WARPS = 4
+NUM_STAGES = 2
+
+#: rows of E per block on the XLA route (a (chunk, N) float32 block is
+#: 0.8 GB at N = 100k)
+XLA_ROW_CHUNK = 2048
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def _matvec_kernel(scal_ref, xt_ref, norms_ref, v_ref, out_ref, *,
-                   tm: int, tn: int, n_col_tiles: int):
-    """out tile (tm, 1) = sum_j K(i, j) @ v_j."""
-    s2 = scal_ref[0]
-    i = pl.program_id(0)
-    xi = xt_ref[:, pl.ds(i * tm, tm)]            # (dpad, tm)
-    ni = norms_ref[:, pl.ds(i * tm, tm)]         # (1, tm)
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def stream_route(b: int) -> str:
+    """The E V route for a V of `b` columns: the compiled Triton
+    kernel on a GPU for b <= BB, the plain-XLA build otherwise."""
+    return ("triton" if jax.default_backend() == "gpu" and b <= BB
+            else "xla")
+
+
+def _matmat_kernel(xr_ref, xc_ref, v_ref, out_ref, *, d: int,
+                   n_col_tiles: int):
+    """out (TM, BB) = sum_j E(rows, cols_j) @ V(cols_j, :)."""
+    xi = [xr_ref[k, :] for k in range(d)]          # d x (TM,)
 
     def body(j, acc):
-        xj = xt_ref[:, pl.ds(j * tn, tn)]        # (dpad, tn)
-        nj = norms_ref[:, pl.ds(j * tn, tn)]     # (1, tn)
-        cross = jax.lax.dot_general(
-            xi, xj, dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)  # (tm, tn)
-        d2 = ni.reshape(tm, 1) + nj.reshape(1, tn) - 2.0 * cross
-        d2 = jnp.maximum(d2, 0.0)
-        k = s2 * jnp.exp(-jnp.sqrt(d2))
-        rows = i * tm + jax.lax.broadcasted_iota(jnp.int32, (tm, tn), 0)
-        cols = j * tn + jax.lax.broadcasted_iota(jnp.int32, (tm, tn), 1)
-        k = jnp.where(rows == cols, s2, k)       # exact diagonal
-        vj = v_ref[:, pl.ds(j * tn, tn)]         # (1, tn)
-        contrib = jax.lax.dot_general(
-            k, vj, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)  # (tm, 1)
-        return acc + contrib
+        cols = pl.ds(j * TN, TN)
+        d2 = jnp.zeros((TM, TN), jnp.float32)
+        for k in range(d):                          # d unrolled FMAs
+            diff = xi[k][:, None] - xc_ref[k, cols][None, :]
+            d2 = d2 + diff * diff
+        e = jnp.exp(-jnp.sqrt(d2))
+        return acc + pl.dot(e, v_ref[cols, :], precision=_HIGHEST)
 
-    acc0 = jnp.zeros((tm, 1), jnp.float32)
+    acc0 = jnp.zeros(out_ref.shape, jnp.float32)
     out_ref[...] = jax.lax.fori_loop(0, n_col_tiles, body, acc0)
 
 
-@functools.partial(jax.jit, static_argnames=("tm", "tn", "interpret"))
-def _matvec(Xt, norms, v2, scalars, tm: int, tn: int, interpret: bool):
-    dpad, npad = Xt.shape
-    grid = (npad // tm,)
-    kern = functools.partial(_matvec_kernel, tm=tm, tn=tn,
-                             n_col_tiles=npad // tn)
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def triton_matmat(Xm, V, interpret: bool = False):
+    """E @ V, E_ij = exp(-||xm_i - xm_j||), through the Triton kernel.
+    Xm (n, d) float32 mapped points, V (n, B). `interpret=True` runs
+    the same kernel in the Pallas interpreter (tests only)."""
+    Xm = jnp.asarray(Xm, jnp.float32)
+    V = jnp.asarray(V, jnp.float32)
+    n, d = Xm.shape
+    b = V.shape[1]
+    npad = _round_up(n, max(TM, TN))
+    bpad = _round_up(b, BB)
+    Xt = jnp.zeros((d, npad), jnp.float32).at[:, :n].set(Xm.T)
+    Vp = jnp.zeros((npad, bpad), jnp.float32).at[:n, :b].set(V)
+    kern = functools.partial(_matmat_kernel, d=d, n_col_tiles=npad // TN)
     out = pl.pallas_call(
         kern,
-        out_shape=jax.ShapeDtypeStruct((npad, 1), jnp.float32),
-        grid=grid,
+        out_shape=jax.ShapeDtypeStruct((npad, bpad), jnp.float32),
+        grid=(npad // TM, bpad // BB),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),          # scalars
-            pl.BlockSpec(memory_space=pltpu.VMEM),          # Xt full
-            pl.BlockSpec(memory_space=pltpu.VMEM),          # norms full
-            pl.BlockSpec(memory_space=pltpu.VMEM),          # v full
+            pl.BlockSpec((d, TM), lambda i, c: (0, i)),     # row points
+            pl.BlockSpec((d, npad), lambda i, c: (0, 0)),   # all points
+            pl.BlockSpec((npad, BB), lambda i, c: (0, c)),  # V columns
         ],
-        out_specs=pl.BlockSpec((tm, 1), lambda i: (i, 0)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * npad * npad * (dpad + 1),
-            bytes_accessed=4 * (npad * dpad + 3 * npad),
-            transcendentals=npad * npad),
+        out_specs=pl.BlockSpec((TM, BB), lambda i, c: (i, c)),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        backend="triton",
         interpret=interpret,
-    )(scalars, Xt, norms, v2)
-    return out[:, 0]
+        name="stream_gram_matmat",
+    )(Xt, Xt, Vp)
+    return out[:n, :b]
 
 
-def _matmat_kernel(scal_ref, xt_ref, norms_ref, v_ref, out_ref, *,
-                   tm: int, tn: int):
-    """out tile (tm, B) += K(i, j) @ V_j over a 2D (row, col) grid.
+@jax.jit
+def xla_matmat(Xm, V):
+    """E @ V by row blocks of E built with the plain tile."""
+    Xm = jnp.asarray(Xm, jnp.float32)
+    V = jnp.asarray(V, jnp.float32)
+    n = Xm.shape[0]
+    chunk = min(XLA_ROW_CHUNK, _round_up(n, 8))
+    npad = _round_up(n, chunk)
+    Xp = jnp.zeros((npad, Xm.shape[1]), jnp.float32).at[:n].set(Xm)
 
-    B right-hand sides share one pass over the Gram tiles (the
-    streaming cost that dominates a single matvec). The probe block V
-    is NOT resident in VMEM: each (B, tn) column tile arrives through
-    the pallas pipeline (BlockSpec below) and the (tm, B) output block
-    is revisited across the j (minor) grid dimension, accumulating in
-    place. At N = 100k with B = 40 a resident V would be 16 MB — alone
-    over the ~16 MB/core VMEM budget (the round-2 ladder died here);
-    this layout keeps VMEM at X-transpose (32B x N) + two pipelined
-    tiles, so the streamed operator scales to N ~ 4e5 rows."""
-    s2 = scal_ref[0]
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    xi = xt_ref[:, pl.ds(i * tm, tm)]            # (dpad, tm)
-    ni = norms_ref[:, pl.ds(i * tm, tm)]         # (1, tm)
-    xj = xt_ref[:, pl.ds(j * tn, tn)]            # (dpad, tn)
-    nj = norms_ref[:, pl.ds(j * tn, tn)]         # (1, tn)
-    cross = jax.lax.dot_general(
-        xi, xj, dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)      # (tm, tn)
-    d2 = ni.reshape(tm, 1) + nj.reshape(1, tn) - 2.0 * cross
-    d2 = jnp.maximum(d2, 0.0)
-    k = s2 * jnp.exp(-jnp.sqrt(d2))
-    rows = i * tm + jax.lax.broadcasted_iota(jnp.int32, (tm, tn), 0)
-    cols = j * tn + jax.lax.broadcasted_iota(jnp.int32, (tm, tn), 1)
-    k = jnp.where(rows == cols, s2, k)           # exact diagonal
-    contrib = jax.lax.dot_general(
-        k, v_ref[...], dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)      # (tm, B)
+    def one(c):
+        rows = jax.lax.dynamic_slice_in_dim(Xp, c * chunk, chunk)
+        E = jnp.exp(-jnp.sqrt(sqdist(rows, Xm)))    # (chunk, n)
+        return jnp.matmul(E, V, precision=_HIGHEST)
 
-    @pl.when(j == 0)
-    def _init():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += contrib
+    out = jax.lax.map(one, jnp.arange(npad // chunk))
+    return out.reshape(npad, -1)[:n]
 
 
-@functools.partial(jax.jit, static_argnames=("tm", "tn", "interpret"))
-def _matmat(Xt, norms, V2, scalars, tm: int, tn: int, interpret: bool):
-    dpad, npad = Xt.shape
-    b = V2.shape[0]
-    grid = (npad // tm, npad // tn)
-    kern = functools.partial(_matmat_kernel, tm=tm, tn=tn)
-    out = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((npad, b), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),          # scalars
-            pl.BlockSpec(memory_space=pltpu.VMEM),          # Xt full
-            pl.BlockSpec(memory_space=pltpu.VMEM),          # norms full
-            # V: (B, tn) column tile, pipelined per grid step
-            pl.BlockSpec((b, tn), lambda i, j: (0, j)),
-        ],
-        # output block revisited across j (minor dim): accumulation
-        out_specs=pl.BlockSpec((tm, b), lambda i, j: (i, 0)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * npad * npad * (dpad + b),
-            bytes_accessed=4 * (npad * dpad + 3 * npad * b),
-            transcendentals=npad * npad),
-        interpret=interpret,
-    )(scalars, Xt, norms, V2)
-    return out
+def streamed_matmat(Xm, s2, bias, sn2, V):
+    """A @ V, V (n, B): every column rides one pass over the tiles."""
+    V = jnp.asarray(V, jnp.float32)
+    EV = (triton_matmat(Xm, V) if stream_route(V.shape[1]) == "triton"
+          else xla_matmat(Xm, V))
+    return s2 * EV + bias * jnp.sum(V, axis=0)[None, :] + sn2 * V
 
 
 class MaterializedOperator:
-    """A = s^2 exp(-dist) + bias + sn2 I, built ONCE by the fused
-    Pallas Gram kernel (ops/pairwise.py) and held in HBM; every
-    matvec/matmat is then a single GEMM at HBM bandwidth instead of an
-    O(N^2) kernel rebuild.
-
-    The streamed `MatvecOperator` pays one full VPU pass (distance +
-    sqrt + exp over N^2 elements) per matvec; a CG+SLQ NLML evaluation
-    makes ~50-70 such passes. When 4 N^2 bytes fit in HBM (N <~ 49k in
-    f32 on a 16 GB v5e; ~73k with store_dtype=bfloat16) this operator
-    pays the kernel build exactly once per hyperparameter setting and
-    the iterative solves run at the GEMM/bandwidth floor — measured
-    ~20x faster end-to-end at N=32768.
+    """A = s^2 exp(-dist) + bias + sn2 I, with K built ONCE by the plain
+    Gram (ops/gram.py) and held in device memory; every matvec/matmat
+    is then one GEMM instead of an O(N^2) kernel rebuild.
 
     store_dtype=bfloat16 halves the footprint; the matvec result is
     then accurate to ~1e-3 relative (f32 accumulation over bf16
@@ -178,37 +161,22 @@ class MaterializedOperator:
     the flagship sn2 = 0.016 beyond N ~ 10^3 — so A_bf16 can be
     indefinite and logdet estimates over it are biased
     (inference.iterative.choose_mode never auto-picks it). f32 storage
-    uses HIGHEST-precision GEMMs (the matvec is bandwidth-bound, so
-    the extra MXU passes are free).
+    uses HIGHEST-precision GEMMs.
 
     The noise diagonal is NEVER quantized: only K = s^2 exp(-dist) +
     bias is stored (in store_dtype); sn2 * v is added in f32 inside
-    matmat. Rounding the O(1) diagonal to bf16 (~0.4% relative) would
-    perturb the small default noise (sn2 ~ 0.016) by O(10%) and can
-    push a near-singular A off SPD (ADVICE r2, matvec.py:181).
+    matmat, so rounding cannot push a near-singular A off SPD.
     """
 
-    def __init__(self, Xm, sigma, bias, sn2, store_dtype=jnp.float32,
-                 tm: int = 256, tn: int = 256, interpret: bool = None):
-        from gp_ss_ak_tpu.ops.pairwise import expans_bias_gram
-
+    def __init__(self, Xm, sigma, bias, sn2, store_dtype=jnp.float32):
         Xm = jnp.asarray(Xm, jnp.float32)
-        self.n = Xm.shape[0]
-        # sn2=0: the stored matrix is K only; the exact noise diagonal
-        # is applied in f32 per matmat below
-        K = expans_bias_gram(Xm, sigma, bias, 0.0, tm=tm, tn=tn,
-                             interpret=interpret)
-        self.A = K.astype(store_dtype)
-        self.sigma = jnp.asarray(sigma, jnp.float32)
-        self.bias = jnp.asarray(bias, jnp.float32)
+        self.A = expans_bias_gram(Xm, sigma, bias).astype(store_dtype)
         self.sn2 = jnp.asarray(sn2, jnp.float32)
-        self._prec = (jax.lax.Precision.HIGHEST
-                      if store_dtype == jnp.float32
+        self._prec = (_HIGHEST if store_dtype == jnp.float32
                       else jax.lax.Precision.DEFAULT)
 
     def __call__(self, v):
-        v = jnp.asarray(v)
-        return self.matmat(v[:, None])[:, 0]
+        return self.matmat(jnp.asarray(v)[:, None])[:, 0]
 
     def matmat(self, V):
         V = jnp.asarray(V, jnp.float32)
@@ -219,79 +187,20 @@ class MaterializedOperator:
 
 
 class MatvecOperator:
-    """A = s^2 exp(-dist) + bias + sn2 I as a matvec closure.
+    """A = s^2 exp(-dist) + bias + sn2 I as a streamed matvec closure.
 
-    Xm: metric-mapped recentred points (n, d) — same convention as
-    ops/fused.py. Padded state is prepared once; __call__ is jitted.
-    """
+    Xm: metric-mapped recentred points (n, d) — see
+    ops/gram.mapped_points."""
 
-    def __init__(self, Xm, sigma, bias, sn2, tm: int = 512,
-                 tn: int = 512, interpret: bool = None):
-        if interpret is None:
-            interpret = not _on_tpu()
-        Xm = jnp.asarray(Xm, jnp.float32)
-        n, d = Xm.shape
-        self.n = n
-        tile = max(tm, tn)
-        npad = _round_up(n, tile)
-        dpad = _round_up(d, 8)
-        Xt = jnp.zeros((dpad, npad), jnp.float32)
-        self.Xt = Xt.at[:d, :n].set(Xm.T)
-        self.norms = jnp.sum(self.Xt * self.Xt, axis=0,
-                             keepdims=True)     # (1, npad)
-        self.npad = npad
-        self.tm = tm
-        self.tn = tn
-        self.interpret = interpret
-        self.sigma = jnp.asarray(sigma, jnp.float32)
+    def __init__(self, Xm, sigma, bias, sn2):
+        self.Xm = jnp.asarray(Xm, jnp.float32)
+        sigma = jnp.asarray(sigma, jnp.float32)
+        self.s2 = sigma * sigma
         self.bias = jnp.asarray(bias, jnp.float32)
         self.sn2 = jnp.asarray(sn2, jnp.float32)
-        self.scalars = jnp.stack([self.sigma * self.sigma])
 
     def __call__(self, v):
-        v = jnp.asarray(v, jnp.float32)
-        v2 = jnp.zeros((1, self.npad), jnp.float32).at[0, : self.n].set(v)
-        y = _matvec(self.Xt, self.norms, v2, self.scalars,
-                    self.tm, self.tn, self.interpret)[: self.n]
-        # rank-1 bias + diagonal noise, added at XLA level
-        return y + self.bias * jnp.sum(v) + self.sn2 * v
+        return self.matmat(jnp.asarray(v)[:, None])[:, 0]
 
     def matmat(self, V):
-        """A @ V for V of shape (n, B): all B columns ride one pass
-        over the streamed Gram tiles (B is padded to a multiple of 8
-        for sublane alignment)."""
-        return streamed_matmat(self.Xt, self.norms, self.scalars,
-                               self.bias, self.sn2, V, self.n,
-                               self.tm, self.tn, self.interpret)
-
-
-def operator_arrays(Xm, sigma, tile: int):
-    """The padded array state of a streamed operator, as a PURE
-    function of (Xm, sigma) — jittable, so a driver can rebuild the
-    operator per hyperparameter setting inside a dispatch and pass the
-    arrays into pre-compiled segment programs (the segmented large-N
-    evaluator, optim/segmented.py) instead of closing over a fresh
-    MatvecOperator (which would retrace every segment per eval).
-    Returns (Xt (dpad, npad), norms (1, npad), scalars (1,))."""
-    Xm = jnp.asarray(Xm, jnp.float32)
-    n, d = Xm.shape
-    npad = _round_up(n, tile)
-    dpad = _round_up(d, 8)
-    Xt = jnp.zeros((dpad, npad), jnp.float32).at[:d, :n].set(Xm.T)
-    norms = jnp.sum(Xt * Xt, axis=0, keepdims=True)
-    sigma = jnp.asarray(sigma, jnp.float32)
-    return Xt, norms, jnp.stack([sigma * sigma])
-
-
-def streamed_matmat(Xt, norms, scalars, bias, sn2, V, n: int,
-                    tm: int, tn: int, interpret: bool):
-    """A @ V through the streaming Gram-tile kernel, as a pure
-    function of the operator arrays (see `operator_arrays`).
-    V (n, B); all B columns ride one pass over the tiles."""
-    V = jnp.asarray(V, jnp.float32)
-    npad = Xt.shape[1]
-    b = V.shape[1]
-    bpad = _round_up(b, 8)
-    V2 = jnp.zeros((bpad, npad), jnp.float32).at[:b, :n].set(V.T)
-    Y = _matmat(Xt, norms, V2, scalars, tm, tn, interpret)[:n, :b]
-    return Y + bias * jnp.sum(V, axis=0)[None, :] + sn2 * V
+        return streamed_matmat(self.Xm, self.s2, self.bias, self.sn2, V)

@@ -3,14 +3,14 @@ space via CG + stochastic Lanczos (inference/iterative.py), chained
 back through the metric map so the box-constrained optimizers
 (optim/lbfgsb.py, optim/scg.py) can drive it unchanged.
 
-This is the large-N training route (N ~ 10^4..10^5+ on one chip) for
+This is the large-N training route (N ~ 10^4..10^5+ on one device) for
 the CLI's flagship model — Sum([ExpAns, Bias]) with a Gaussian
 likelihood (gp_ss_ak.cpp:146-190) — where the dense NLML
 (inference/gaussian.py) cannot hold the N x N Gram matrix. The chain
 rule split:
 
   flat = [8 ExpAns params, bias, sn2]
-  Xm(angles, widths)  = (X - mean X) @ M            (ops/fused.py)
+  Xm(angles, widths)  = (X - mean X) @ M            (ops/gram.py)
   NLML(Xm, sigma, bias, sn2)                        (iterative.py)
   d NLML/d angles,widths = vjp of Xm pullback of d NLML/d Xm
   d NLML/d sigma,bias,sn2 = direct from grad_iterative
@@ -32,11 +32,11 @@ from gp_ss_ak_tpu.inference.iterative import (
 )
 from gp_ss_ak_tpu.inference.likelihoods import Gaussian, WarpedGaussian
 from gp_ss_ak_tpu.model import GPModel
-from gp_ss_ak_tpu.ops.fused import _is_flagship, mapped_points
+from gp_ss_ak_tpu.ops.gram import _is_flagship, mapped_points
 
 #: above this N, fit(engine="auto") prefers the matrix-free route
-#: (dense needs several N^2 f32 buffers: ~3 GB of HBM per buffer at
-#: N=16k is still fine; 32k+ is not, and compile+chol time grows N^3)
+#: (dense needs several N^2 f32 buffers, ~1 GB each at N=16k, and its
+#: Cholesky time grows as N^3)
 DENSE_MAX_N = 16384
 
 
@@ -62,15 +62,12 @@ def make_iterative_value_and_grad(
     cg_tol: float = 1e-4,
     cg_maxiter: int = 800,
     chunk: int = 1024,
-    tm: int = 512,
-    tn: int = 512,
-    interpret=None,
     jitter: float = 0.0,
     precond_rank=None,
     slq_probes: int = 64,
     mode: str = "auto",
 ):
-    """Host-callable (f, g) over ONE jitted matrix-free TPU program.
+    """Host-callable (f, g) over ONE jitted matrix-free program.
 
     `jitter` is folded into the operator's noise (sn2 + jitter), the
     matrix-free analogue of the dense engine adding jitter*I to A.
@@ -78,9 +75,9 @@ def make_iterative_value_and_grad(
     pivoted-Cholesky Woodbury preconditioner (0 disables it; None
     picks the N-scaled auto rank, inference.iterative.auto_precond_rank).
     `mode` selects the operator strategy (inference.iterative.choose_mode):
-    auto materializes A when it fits in HBM — exact Cholesky up to
-    N~32k ("chol": exact value, exact probe solves), GEMM-backed
-    PCG+SLQ up to ~49k f32 / ~73k bf16, streamed Pallas tiles beyond."""
+    auto materializes A when it fits in device memory — exact Cholesky
+    ("chol": exact value, exact probe solves), then GEMM-backed
+    PCG+SLQ, and streamed Gram tiles (ops/matvec.py) beyond."""
     if not supports_iterative(model):
         raise ValueError(
             "iterative engine supports only Sum([ExpAns, Bias]) + "
@@ -113,8 +110,8 @@ def make_iterative_value_and_grad(
         val, (ds, db, dsn2, dXm), stats = nlml_and_grad_iterative(
             it_gp, gy, key_logdet, key_trace, cg_tol=cg_tol,
             cg_maxiter=cg_maxiter, probes=probes,
-            lanczos_iters=lanczos_iters, chunk=chunk, tm=tm, tn=tn,
-            interpret=interpret, precond_rank=precond_rank,
+            lanczos_iters=lanczos_iters, chunk=chunk,
+            precond_rank=precond_rank,
             slq_probes=slq_probes, mode=mode)
         (d_ep,) = pullback(dXm)
         d_ep = dict(d_ep)

@@ -19,7 +19,7 @@ variables (at a bound with the gradient pushing outward) fall back to
 steepest descent, and the backtracking Armijo line search evaluates the
 *projected* iterate clip(x + t d). For the ~10-dimensional hyper
 problems this targets it matches L-BFGS-B's fixed points; the O(N^3)
-cost lives entirely in the jitted objective on the TPU, so host-side
+cost lives entirely in the jitted objective on the device, so host-side
 numpy control flow is the right split (no XLA recompiles per iter).
 
 A fully-jittable variant for vmapped ensembles is in

@@ -4,7 +4,7 @@ Behavioral spec from `scgOptimise` (Opt_pars.cpp:979-1124): finite-
 difference curvature along the search direction, trust-region lambda
 adaptation from the comparison ratio Delta, direction restart every
 `dim` iterations, convergence when |Delta f| < tol. Host-driver form
-like LBFGSB (objective+grad are jitted TPU calls); bounds are enforced
+like LBFGSB (objective+grad are jitted device calls); bounds are enforced
 by projection at evaluation points.
 """
 

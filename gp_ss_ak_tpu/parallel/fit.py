@@ -44,7 +44,6 @@ def fit_distributed(
     callback=None,
     grad_mode: str = "auto",
     probes: int = 32,
-    fused: bool = None,
 ) -> Tuple[GPModel, OptResult]:
     """Distributed fit over the row-sharded NLML.
 
@@ -52,9 +51,7 @@ def fit_distributed(
     parallel.nlml.EXACT_GRAD_MAX_N (= 8192) rows the gradient switches
     from the exact N-RHS Q-build to the `probes`-probe Hutchinson
     estimator — stochastic but deterministic per evaluation (fixed
-    probe key), so the optimizer sees a self-consistent objective; the
-    measured crossover is recorded in results.json
-    "dist_grad_ab" (benchmarks/dist_grad_ab.py). Pass
+    probe key), so the optimizer sees a self-consistent objective. Pass
     grad_mode="exact" to force the exact gradient at any size.
     """
     dtype = jnp.result_type(model.pack())
@@ -63,7 +60,7 @@ def fit_distributed(
     nlml_grad = make_dist_nlml_and_grad(model.kernel, model.likelihood,
                                         mesh, n=n, nb=nb,
                                         grad_mode=grad_mode,
-                                        probes=probes, fused=fused)
+                                        probes=probes)
 
     def value_and_grad(flat_np):
         v, g = nlml_grad(jnp.asarray(flat_np, dtype), Xs, ys)
@@ -113,8 +110,9 @@ def fit_ring(
     """Fit past the row-panel wall: L-BFGS-B over the ring-distributed
     matrix-free NLML (parallel.ring.make_ring_nlml_and_grad) — no
     device ever holds more than an (n_local, n_local) tile, so this is
-    the multi-chip route at N where even the row panels of
-    fit_distributed would exceed HBM (ring.py module docstring).
+    the multi-device route at N where even the row panels of
+    fit_distributed would exceed device memory (ring.py module
+    docstring).
 
     The probe keys are fixed per fit, so the optimizer sees a
     deterministic (biased but self-consistent) objective — the same

@@ -1,9 +1,11 @@
 """Device-mesh helpers.
 
 The reference is a single-threaded single-host program (SURVEY.md §2);
-everything here is new TPU capability. One 1-D mesh axis ("dp") shards
+everything here is new capability. One 1-D mesh axis ("dp") shards
 the N training rows — the GP analogue of data parallelism; the N x N
-kernel matrix is row-sharded over it and all collectives ride ICI.
+kernel matrix is row-sharded over it. The mesh follows the algorithm
+alone: the cards of one host reach each other at the same rate, so no
+device layout is implied.
 """
 
 from __future__ import annotations

@@ -1,17 +1,19 @@
-"""Multi-host (DCN) initialization helpers.
+"""Multi-process initialization helpers.
 
-Within a slice, collectives ride ICI; across hosts they ride DCN —
-both through the same jax.lax collectives once `jax.distributed` has
-stitched the processes together (SURVEY.md §5 "communication
-backend": XLA owns the transport; there is no NCCL/MPI layer to
-manage). These helpers wrap the standard boot sequence so the CLI and
-training scripts stay one-liners on pods.
+Collectives go through jax.lax once `jax.distributed` has stitched the
+processes together; XLA hands them to NCCL on GPUs (SURVEY.md §5
+"communication backend": there is no transport layer to manage here).
+These helpers wrap the boot sequence so the CLI and training scripts
+stay one-liners.
 
-Sharding guidance (How to Scale Your Model recipe): keep the kernel
-row axis ("dp") INSIDE a slice so the per-step all-gathers of the
-block-Cholesky panels ride ICI; put independent work — HMC chains,
-ensemble members — on the cross-host axis, where only rare, small
-reductions cross DCN.
+Run ONE process per host, driving all of that host's cards: a JAX
+process reserves most of every card it can see when it first uses it,
+so a second process on the same host fails for want of memory.
+
+Sharding guidance: keep the kernel row axis ("dp") within a host, where
+the per-step all-gathers of the block-Cholesky panels ride the fast
+links; put independent work — HMC chains, ensemble members — on the
+cross-host axis, where only rare, small reductions cross hosts.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """jax.distributed.initialize with env-var fallbacks
     (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID); no-op when
-    single-process."""
+    single-process. The process drives every local device (one
+    process per host)."""
     addr = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
     if addr is None:
         return
@@ -50,7 +53,7 @@ def two_level_mesh(rows_per_host: Optional[int] = None,
                    row_axis: str = "dp",
                    chain_axis: str = "chains") -> Mesh:
     """(chains, dp) mesh: the data/kernel axis spans each host's local
-    chips (ICI), the chain/ensemble axis spans hosts (DCN)."""
+    devices, the chain/ensemble axis spans hosts."""
     devs = np.array(jax.devices())
     n_local = rows_per_host or jax.local_device_count()
     n_hosts = devs.size // n_local

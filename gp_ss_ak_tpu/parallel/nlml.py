@@ -4,10 +4,8 @@ Composition (all per-device code under jax.shard_map over mesh axis
 "dp", rows contiguous):
 
   X is row-sharded; one all-gather replicates it (N x d is tiny);
-  each device builds its ROW BLOCK of A = K + sn2 I — on TPU the
-  flagship kernel's panel goes through the Pallas fused distance+exp
-  cross-Gram (ops/fused.fused_expans_bias_cross), elsewhere through
-  the generic XLA Gram — the N x N matrix never exists on one chip;
+  each device builds its ROW BLOCK of A = K + sn2 I through the
+  generic Gram — the N x N matrix never exists on one device;
   distributed block Cholesky + substitutions (parallel/pchol.py)
   produce alpha, the half log-determinant and posterior solves.
 
@@ -47,63 +45,27 @@ from gp_ss_ak_tpu.parallel.pchol import (
 _PREC = lax.Precision.HIGHEST
 
 #: grad_mode="auto" switchover: at or below this N the exact N-RHS
-#: Q = A^-1 gradient is used (its ~6x-the-Cholesky cost is still small
-#: in absolute terms and the gradient is exact); above it the
-#: Hutchinson probe estimator wins. Measured on the v5e
-#: (benchmarks/dist_grad_ab.py, results.json "dist_grad_ab_n{N}_tpu",
-#: chain-timed): hutchinson32 is 1.4x at N=2048 (3.8 -> 2.7 ms),
-#: 1.9x at N=4096 (23.4 -> 12.5 ms), 2.1x at N=8192 (167 -> 80 ms),
-#: with grad cos = 1.0 and relerr 3e-4 throughout — so the probe
-#: gradient already wins at 2k, but the exact gradient stays the
-#: default while its absolute cost is small (< ~170 ms/eval).
+#: Q = A^-1 gradient is used (about 6x the Cholesky's flops, but exact);
+#: above it the Hutchinson probe estimator, whose cost grows with the
+#: probe count instead of N. The crossover has not been measured on a
+#: GPU.
 EXACT_GRAD_MAX_N = 8192
 
 
-def _build_A_local(kernel, params, sn2, X_local, X_all, g, n_valid,
-                   fused: bool = False):
-    """Row block of A = K + sn2 I with identity padding rows.
-
-    With `fused=True` (flagship Sum([ExpAns, Bias]) kernel on TPU) the
-    row panel comes from the Pallas fused distance+exp cross-Gram
-    (ops/fused.fused_expans_bias_cross): points are recentred with the
-    global mean of the all-gathered X (every device computes the same
-    centre, so cross-block distances are consistent) and metric-mapped
-    once, and D2 for the panel never touches HBM. The differentiable
-    custom VJP keeps the QW-contraction gradient path intact."""
+def _build_A_local(kernel, params, sn2, X_local, X_all, g, n_valid):
+    """Row block of A = K + sn2 I with identity padding rows."""
     N = X_all.shape[0]
     cols = jnp.arange(N)
-    if fused:
-        from gp_ss_ak_tpu.ops.fused import (
-            fused_expans_bias_cross,
-            mapped_points,
-        )
-
-        ep, bp = params
-        Xm_all = mapped_points(kernel.children[0], ep, X_all)
-        Xm_local = lax.dynamic_slice_in_dim(Xm_all, g[0],
-                                            X_local.shape[0], axis=0)
-        sigma, bias = ep["Sigma"], bp["Sigma"]
-        # promote the device-invariant operands to the varying set of
-        # the local slice BEFORE the custom-VJP boundary: the transpose
-        # of these pvary ops is the psum that folds each device's
-        # cotangent contribution back onto the replicated params —
-        # custom_vjp itself would not insert it (same pattern as
-        # ops/pairwise.py's pallas vma plumbing)
-        vma = vma_of(Xm_local)
-        if vma:
-            def _match(v):
-                return pvary_to(v, vma - vma_of(v))
-
-            Xm_all_v = _match(Xm_all)
-            sigma, bias = _match(sigma), _match(bias)
-        else:
-            Xm_all_v = Xm_all
-        K_local = fused_expans_bias_cross(Xm_local, Xm_all_v, sigma, bias)
-    else:
-        K_local = kernel.matrix(params, X_local, X_all, same=False)
+    on_diag = cols[None, :] == g[:, None]
+    # the cross form leaves a rounding residue in d2 on the global
+    # diagonal, which the sqrt amplifies to ~1e-4 of K on a GPU — a
+    # systematic shift against sn2; the exact value is the kernel's own
+    # diagonal, as in the dense same=True build
+    K_local = jnp.where(on_diag, kernel.diag(params, X_local)[:, None],
+                        kernel.matrix(params, X_local, X_all, same=False))
     vr = (g < n_valid)[:, None]
     vc = (cols < n_valid)[None, :]
-    eye_local = (cols[None, :] == g[:, None]).astype(K_local.dtype)
+    eye_local = on_diag.astype(K_local.dtype)
     diag_val = jnp.where(g < n_valid, sn2, 1.0)[:, None]
     return jnp.where(vr & vc, K_local, 0.0) + eye_local * diag_val
 
@@ -111,7 +73,6 @@ def _build_A_local(kernel, params, sn2, X_local, X_all, g, n_valid,
 def make_dist_nlml_and_grad(kernel, likelihood, mesh: Mesh, n: int,
                             n_devices: int = None, nb: int = 128,
                             axis: str = ROW_AXIS,
-                            fused: bool = None,
                             grad_mode: str = "auto",
                             probes: int = 32,
                             probe_seed: int = 0) -> Callable:
@@ -125,26 +86,15 @@ def make_dist_nlml_and_grad(kernel, likelihood, mesh: Mesh, n: int,
     objective, and sn2 = exp(2 theta_last) per the reference convention
     (GP_Utils.cpp:417-430).
 
-    `fused` routes the row-panel Gram through the Pallas fused
-    distance+exp kernel (default: on for the flagship kernel on TPU).
-
     `grad_mode="hutchinson"` replaces the exact N-RHS Q = A^-1 build
-    (~6x the Cholesky FLOPs per evaluation, VERDICT r1 #2) with a
+    (~6x the Cholesky FLOPs per evaluation) with a
     `probes`-RHS stochastic trace estimator — see _make_nlml_body.
     The default "auto" picks exact for n <= EXACT_GRAD_MAX_N and
     hutchinson beyond, where the N-RHS solve dominates wall-clock."""
-    from gp_ss_ak_tpu.ops.fused import _is_flagship
-    from gp_ss_ak_tpu.ops.pairwise import _on_tpu
-
     if grad_mode == "auto":
         grad_mode = "exact" if n <= EXACT_GRAD_MAX_N else "hutchinson"
-    if fused is None:
-        fused = _on_tpu() and _is_flagship(kernel)
-    elif fused and not _is_flagship(kernel):
-        raise ValueError("fused=True requires the flagship "
-                         "Sum([ExpAns, Bias]) kernel")
     P_sz = n_devices or len(mesh.devices)
-    body = _make_nlml_body(kernel, n, P_sz, nb, axis, fused,
+    body = _make_nlml_body(kernel, n, P_sz, nb, axis,
                            grad_mode=grad_mode, probes=probes,
                            probe_seed=probe_seed, likelihood=likelihood)
     mapped = jax.shard_map(
@@ -155,7 +105,7 @@ def make_dist_nlml_and_grad(kernel, likelihood, mesh: Mesh, n: int,
     return jax.jit(mapped)
 
 
-def _make_nlml_body(kernel, n, P_sz, nb, axis, fused,
+def _make_nlml_body(kernel, n, P_sz, nb, axis,
                     grad_mode: str = "exact", probes: int = 32,
                     probe_seed: int = 0, likelihood=None):
     """Per-device NLML+grad body, reusable across the 1-D ("dp") mesh
@@ -207,7 +157,7 @@ def _make_nlml_body(kernel, n, P_sz, nb, axis, fused,
         X_all = lax.all_gather(X_local, axis, tiled=True)
 
         A_local = _build_A_local(kernel, params, sn2, X_local, X_all,
-                                 g, n, fused=fused)
+                                 g, n)
         L_local, half_logdet = block_cholesky_local(A_local, nb, axis)
         alpha = solve_chol_local(L_local, gy_local[:, None],
                                  nb, axis)[:, 0]
@@ -243,7 +193,7 @@ def _make_nlml_body(kernel, n, P_sz, nb, axis, fused,
                 params_ = kernel.unpack(flat_[:nk])
                 sn2_ = _sn2_of(flat_)
                 A_ = _build_A_local(kernel, params_, sn2_, X_local,
-                                    X_all, g, n, fused=fused)
+                                    X_all, g, n)
                 return 0.5 * jnp.sum(QW * A_) + _extra(flat_)
         else:
             # Hutchinson: Z (N, m) Rademacher, identical on every
@@ -267,7 +217,7 @@ def _make_nlml_body(kernel, n, P_sz, nb, axis, fused,
                 params_ = kernel.unpack(flat_[:nk])
                 sn2_ = _sn2_of(flat_)
                 A_ = _build_A_local(kernel, params_, sn2_, X_local,
-                                    X_all, g, n, fused=fused)
+                                    X_all, g, n)
                 AZ = jnp.matmul(A_, Z_all, precision=_PREC)
                 tr_est = jnp.sum(U_local * AZ) / probes
                 quad = jnp.dot(a_l, jnp.matmul(A_, a_all[:, None],
@@ -294,7 +244,6 @@ def make_two_level_nlml_and_grad(kernel, likelihood, mesh: Mesh, n: int,
                                  nb: int = 128,
                                  chain_axis: str = "chains",
                                  row_axis: str = ROW_AXIS,
-                                 fused: bool = None,
                                  grad_mode: str = "auto",
                                  probes: int = 32,
                                  probe_seed: int = 0) -> Callable:
@@ -302,8 +251,8 @@ def make_two_level_nlml_and_grad(kernel, likelihood, mesh: Mesh, n: int,
     (parallel/multihost.two_level_mesh): each CHAIN (HMC chain /
     ensemble member / restart) owns an independent hyper vector and a
     full copy of the data; within a chain the kernel matrix and block
-    Cholesky are row-sharded over `row_axis` (ICI), while `chain_axis`
-    (DCN across hosts) carries no per-step collectives at all.
+    Cholesky are row-sharded over `row_axis`, while `chain_axis`
+    carries no per-step collectives at all.
 
     `likelihood` and `grad_mode` follow make_dist_nlml_and_grad exactly:
     WarpedGaussian chains get the warped objective (warp + Jacobian +
@@ -314,18 +263,13 @@ def make_two_level_nlml_and_grad(kernel, likelihood, mesh: Mesh, n: int,
     grads (C, p)); X/y are sharded on rows and replicated across
     chains.
     """
-    from gp_ss_ak_tpu.ops.fused import _is_flagship
-    from gp_ss_ak_tpu.ops.pairwise import _on_tpu
-
     if grad_mode == "auto":
         grad_mode = "exact" if n <= EXACT_GRAD_MAX_N else "hutchinson"
-    if fused is None:
-        fused = _on_tpu() and _is_flagship(kernel)
     ci = mesh.axis_names.index(chain_axis)
     ri = mesh.axis_names.index(row_axis)
     P_sz = mesh.devices.shape[ri]
     n_chains = mesh.devices.shape[ci]
-    body = _make_nlml_body(kernel, n, P_sz, nb, row_axis, fused,
+    body = _make_nlml_body(kernel, n, P_sz, nb, row_axis,
                            grad_mode=grad_mode, probes=probes,
                            probe_seed=probe_seed, likelihood=likelihood)
 
@@ -349,8 +293,7 @@ def make_two_level_nlml_and_grad(kernel, likelihood, mesh: Mesh, n: int,
 
 def make_dist_predict(kernel, likelihood, mesh: Mesh, n: int,
                       n_devices: int = None, nb: int = 128,
-                      axis: str = ROW_AXIS,
-                      fused: bool = None) -> Callable:
+                      axis: str = ROW_AXIS) -> Callable:
     """Returns jitted (flat, X_pad, y_pad, Xstar) -> (mu, var).
 
     Xstar is replicated (serve in chunks); mu/var come back replicated.
@@ -361,11 +304,7 @@ def make_dist_predict(kernel, likelihood, mesh: Mesh, n: int,
     """
     from gp_ss_ak_tpu.inference.gaussian import warped_predictive_mix
     from gp_ss_ak_tpu.inference.likelihoods import WarpedGaussian
-    from gp_ss_ak_tpu.ops.fused import _is_flagship
-    from gp_ss_ak_tpu.ops.pairwise import _on_tpu
 
-    if fused is None:
-        fused = _on_tpu() and _is_flagship(kernel)
     P_sz = n_devices or len(mesh.devices)
     nk = kernel.n_params
     warped = isinstance(likelihood, WarpedGaussian)
@@ -389,7 +328,7 @@ def make_dist_predict(kernel, likelihood, mesh: Mesh, n: int,
         X_all = lax.all_gather(X_local, axis, tiled=True)
 
         A_local = _build_A_local(kernel, params, sn2, X_local, X_all,
-                                 g, n, fused=fused)
+                                 g, n)
         L_local, _ = block_cholesky_local(A_local, nb, axis)
         alpha = solve_chol_local(L_local, gy_local[:, None],
                                  nb, axis)[:, 0]

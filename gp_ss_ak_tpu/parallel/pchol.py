@@ -10,19 +10,19 @@ Right-looking algorithm per block-column j (block size nb):
   1. the diagonal block K[j,j] reaches every device via a masked psum
      (owner contributes, others zero) and all devices redundantly
      factor the tiny nb x nb block — cheaper than a broadcast tree;
-  2. each device right-solves its local panel rows against D^T (MXU);
+  2. each device right-solves its local panel rows against D^T;
   3. one all-gather assembles the full column block L[:, j] (the only
-     O(N nb) communication per step — rides ICI);
-  4. the trailing update K -= L_panel @ L_col^T is a local MXU matmul,
+     O(N nb) communication per step);
+  4. the trailing update K -= L_panel @ L_col^T is a local matmul,
      masked to untouched columns; the panel overwrites K's column
      block in place, so L materializes inside the K buffer.
 
 The forward/backward substitutions follow the same pattern (masked
-psum of the diagonal block + local MXU updates); the backward sweep
+psum of the diagonal block + local matmul updates); the backward sweep
 additionally broadcasts the owner's row block of L.
 
-All matmuls force full-f32 precision (bf16 MXU default breaks
-positive-definiteness — see kernels/distance.py).
+All matmuls force full-f32 precision (a TF32 product keeps about three
+decimal digits, which breaks positive-definiteness).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""Serving: factor once, predict many (batched, HBM-bandwidth path).
+"""Serving: factor once, predict many (batched).
 
 The reference's test mode rebuilds alpha/chol from scratch on every
 invocation (gp_ss_ak.cpp:382-395). The Predictor here factors the
 training posterior ONCE, keeps (alpha, L) on device, and serves
 posterior mean/variance for arbitrary batches of query points — each
-batch is one cross-Gram (fused Pallas kernel on TPU) + one triangular
-solve, both streaming at memory bandwidth for large N.
+batch is one cross-Gram + one triangular solve (or one GEMM against a
+precomputed L^-1).
 """
 
 from __future__ import annotations
@@ -23,16 +23,14 @@ from gp_ss_ak_tpu.model import GPModel
 def blocked_linv(chol, block: int = 1024):
     """L^-1 by block-row forward substitution — GEMMs, not big solves.
 
-    A single n-RHS `solve_triangular` is the obvious spelling, but
-    XLA:TPU's lowering materializes temporaries proportional to
-    n x RHS (~64 GB at n = RHS = 16384, and still ~20 GB for 1024-RHS
-    column blocks at n = 32768 — both measured OOMs on a 16 GB v5e).
+    A single n-RHS `solve_triangular` is the obvious spelling, but its
+    lowering can materialize temporaries proportional to n x RHS.
     Block-row inversion avoids large solves entirely:
 
       Linv[i, :i] = -Lii^-1 (L[i, :i] @ Linv[:i, :i]),
       Linv[i, i]  = Lii^-1,
 
-    one (block, n) x (n, n) MXU GEMM + one block x block triangular
+    one (block, n) x (n, n) GEMM + one block x block triangular
     solve per block row; peak memory is L + Linv + O(block x n). One
     compiled program serves every row (the row index is traced); the
     Linv carry is donated, so no second n x n buffer accumulates."""
@@ -82,19 +80,18 @@ class Predictor:
     SINGLE_SHOT_LINV_MAX_N = 8192
 
     def __init__(self, model: GPModel, X, y, jitter: float = 0.0,
-                 robust: bool = False, fused: bool = None,
+                 robust: bool = False,
                  precompute_inverse: Optional[bool] = None):
         self.model = model
         dtype = jnp.result_type(model.pack())
         self.X = jnp.asarray(X, dtype)
         self.y = jnp.asarray(y, dtype)
-        # single assembly path: gaussian.factorize owns the fused-A /
-        # warp / jitter-retry logic (robust=True adds the escalating
-        # diagonal nugget instead of propagating NaN)
+        # single assembly path: gaussian.factorize owns the warp /
+        # jitter-retry logic (robust=True adds the escalating diagonal
+        # nugget instead of propagating NaN)
         self.post = gaussian.factorize(
             model.kernel, model.kernel_params, model.lik_hypers,
-            self.X, self.y, model.likelihood, jitter, fused,
-            robust=robust)
+            self.X, self.y, model.likelihood, jitter, robust=robust)
         self.nugget = (self.post.nugget if self.post.nugget is not None
                        else jnp.zeros((), dtype))
 
@@ -102,7 +99,7 @@ class Predictor:
             precompute_inverse = self.X.shape[0] <= self.PRECOMPUTE_MAX_N
         if precompute_inverse:
             # one-time L^-1 so each serving batch's whitened solve is a
-            # single MXU GEMM instead of a triangular solve
+            # single GEMM instead of a triangular solve
             n = self.X.shape[0]
             if n <= self.SINGLE_SHOT_LINV_MAX_N:
                 eye = jnp.eye(n, dtype=dtype)
@@ -146,16 +143,15 @@ class IterativePredictor:
     """Matrix-free posterior server: K(X, X) is NEVER materialized.
 
     The dense `Predictor` factorizes the full training Gram — its
-    memory wall (A + L = 8 N^2 bytes) caps it at N ~ 32k on a 16 GB
-    chip, which is exactly where the matrix-free training engine
-    (optim/iterative_fit.py) starts to matter. This server extends the
+    memory wall (A + L = 8 N^2 bytes) is exactly where the matrix-free
+    training engine (optim/iterative_fit.py) starts to matter. This server extends the
     reference's posteriorMeanVar contract (GP_Utils.cpp:943-1043) past
     that wall with the same pieces the training engine runs on:
 
       setup  alpha = A^-1 y by whitened batched CG (plain CG on
              P^(-1/2) A P^(-1/2), P the rank-k pivoted-Cholesky
              preconditioner — the f32-stable route) over the streamed
-             Pallas Gram operator (ops/matvec.py) — one-time cost,
+             Gram operator (ops/matvec.py) — one-time cost,
              alpha stays on device.
       mean   mu = k*' alpha + bias * sum(alpha): one chunked
              cross-kernel pass per query batch, O(N M d) — no solves.
@@ -171,7 +167,7 @@ class IterativePredictor:
     Gaussian (mu, var) at each query is pushed through g^{-1} with the
     same 20-node Gauss-Hermite mix as the dense path
     (gaussian.warped_predictive_mix; GP_Utils.cpp:1044-1078) — the
-    reference's warped-prediction contract past the dense N~32k wall.
+    reference's warped-prediction contract past the dense wall.
     `mean_only` callers (e.g. large-N MSE reports) skip the
     per-batch variance solves for plain Gaussian models; the warped
     predictive mean depends on the latent VARIANCE (the quadrature
@@ -180,8 +176,7 @@ class IterativePredictor:
 
     def __init__(self, model: GPModel, X, y, precond_rank=None,
                  cg_tol: float = 1e-4, cg_maxiter: int = 800,
-                 tm: int = 512, tn: int = 512, chunk: int = 4096,
-                 interpret: Optional[bool] = None):
+                 chunk: int = 4096):
         from gp_ss_ak_tpu.inference.iterative import (
             auto_precond_rank,
             bcg_solve,
@@ -189,11 +184,7 @@ class IterativePredictor:
             whitened_solve_info,
         )
         from gp_ss_ak_tpu.kernels.distance import pad_to_3d
-        from gp_ss_ak_tpu.ops.matvec import (
-            operator_arrays,
-            streamed_matmat,
-        )
-        from gp_ss_ak_tpu.ops.pairwise import _on_tpu, _round_up
+        from gp_ss_ak_tpu.ops.matvec import _round_up, streamed_matmat
         from gp_ss_ak_tpu.inference.likelihoods import WarpedGaussian
         from gp_ss_ak_tpu.optim.iterative_fit import supports_iterative
 
@@ -202,8 +193,6 @@ class IterativePredictor:
                 "IterativePredictor supports only Sum([ExpAns, Bias]) "
                 "with a (Warped)Gaussian likelihood; got "
                 f"{model.kernel!r} / {type(model.likelihood).__name__}")
-        if interpret is None:
-            interpret = not _on_tpu()
         self.model = model
         ep, bp = model.kernel_params
         expans = model.kernel.children[0]
@@ -227,9 +216,8 @@ class IterativePredictor:
         rank = auto_precond_rank(n) if precond_rank is None \
             else precond_rank
         self.precond_rank = rank
-        tile = max(tm, tn)
 
-        # same mapping convention as training (ops/fused.mapped_points):
+        # same mapping convention as training (ops/gram.mapped_points):
         # recentre by the TRAIN mean, map through M — distances are
         # translation invariant, so queries share c and M
         Xp = pad_to_3d(Xd)
@@ -245,12 +233,10 @@ class IterativePredictor:
         self.bias = bias
         self.sn2 = sn2
 
-        Xt, norms, scalars = operator_arrays(Xm, sigma, tile)
-        self._opargs = (Xt, norms, scalars, bias, sn2)
+        s2 = self.s2
 
         def matmat(V):
-            return streamed_matmat(Xt, norms, scalars, bias, sn2, V,
-                                   n, tm, tn, interpret)
+            return streamed_matmat(Xm, s2, bias, sn2, V)
 
         self._matmat = matmat
         # whitened-CG solve route (f32-stable at the flagship
@@ -338,14 +324,10 @@ class IterativePredictor:
 
         return cross
 
-    #: max RHS columns per whitened-CG solve: the streamed Pallas
-    #: matmat keeps the full 32 x npad transposed-points array in VMEM
-    #: (that is what lets it scale in ROWS) plus pipelined (B, tn) and
-    #: (tm, B) column blocks — so the safe column count SHRINKS as n
-    #: grows. Measured on a 16 GB v5e at tile 512: B=2048 dies at
-    #: n=4096 (scoped-vmem OOM), B=1024 is fine at n=65536 but crashes
-    #: the worker at n=100000, where B=512 is fine. Each chunk still
-    #: amortizes one full O(N^2) operator pass across its columns.
+    #: max RHS columns per whitened-CG solve: the solver carries
+    #: several (n, B) float32 arrays, so the column block shrinks as n
+    #: grows. Each block still amortizes one full O(N^2) operator pass
+    #: across its columns. Not re-tuned for any particular device.
     SOLVE_COL_BLOCK = 1024
     SOLVE_COL_BLOCK_LARGE_N = 512
     LARGE_N_THRESHOLD = 80000

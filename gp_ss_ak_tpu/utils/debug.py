@@ -1,6 +1,6 @@
 """Numerical-debug helpers (SURVEY.md §5 "race detection/sanitizers").
 
-XLA's execution model has no shared-memory races; the TPU analogues of
+XLA's execution model has no shared-memory races; the analogues of
 the reference's debug build (-ggdb -DDBG, make_linux:19) are NaN
 tracing and value checking:
 

@@ -75,10 +75,22 @@ class TestGolden:
         assert mse < 0.05 * float(np.var(self.yte)) + 0.02
 
     def test_fused_path_matches_golden(self):
+        """The flagship's own Gram build over metric-mapped points
+        (ops/gram.py — what the materialized and streamed engines run)
+        reproduces the golden predictive mean."""
+        from gp_ss_ak_tpu.kernels.distance import pad_to_3d
+        from gp_ss_ak_tpu.ops.gram import expans_bias_gram
+
         Xtrs, ytrs, Xtes = self._standardized()
-        mu_f, _ = predict(self.model.kernel, self.model.kernel_params,
-                          self.model.lik_hypers, jnp.asarray(Xtrs),
-                          jnp.asarray(ytrs), jnp.asarray(Xtes),
-                          self.model.likelihood, fused=True)
+        ep, bp = self.model.kernel_params
+        expans = self.model.kernel.children[0]
+        Xp, Xsp = pad_to_3d(jnp.asarray(Xtrs)), pad_to_3d(jnp.asarray(Xtes))
+        c = jnp.mean(Xp, axis=0)
+        M = expans.metric(ep, Xp.shape[-1])
+        Xm, Xsm = (Xp - c) @ M, (Xsp - c) @ M
+        sn2 = self.model.likelihood.noise_variance(self.model.lik_hypers)
+        A = expans_bias_gram(Xm, ep["Sigma"], bp["Sigma"], sn2)
+        kX = expans_bias_gram(Xm, ep["Sigma"], bp["Sigma"], Xm2=Xsm)
+        mu_f = kX.T @ jnp.linalg.solve(A, jnp.asarray(ytrs))
         yh = unapply_y(self.stats, np.asarray(mu_f))
         np.testing.assert_allclose(yh, self.exp_mu, rtol=1e-7, atol=1e-9)

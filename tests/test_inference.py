@@ -85,6 +85,21 @@ class TestNLML:
         val = float(nlml(kern, params, jnp.asarray([1e-6]), X, y))
         assert math.isnan(val)
 
+    @pytest.mark.parametrize("grad_mode", ["autodiff", "qw"])
+    def test_indefinite_flagship_A_is_nan(self, grad_mode):
+        """The reference's Chol_fail protocol (GP_Utils.cpp:884-915):
+        an indefinite A = K + sn2 I (here sn2 far below -lambda_min)
+        surfaces as a NaN objective through the factorization, in both
+        gradient schedules, instead of raising."""
+        from gp_ss_ak_tpu.model import default_model
+
+        m = default_model(3)
+        X = jnp.asarray(RNG.uniform(-1, 1, size=(64, 3)))
+        y = jnp.sin(X.sum(1))
+        val = nlml(m.kernel, m.kernel_params, jnp.asarray([-50.0]), X, y,
+                   grad_mode=grad_mode)
+        assert math.isnan(float(val))
+
 
 class TestPosterior:
     def test_matches_oracle(self):

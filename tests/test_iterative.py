@@ -16,7 +16,7 @@ from gp_ss_ak_tpu.inference.iterative import (
     slq_logdet,
 )
 from gp_ss_ak_tpu.model import default_model
-from gp_ss_ak_tpu.ops.fused import mapped_points
+from gp_ss_ak_tpu.ops.gram import mapped_points
 from gp_ss_ak_tpu.ops.matvec import MatvecOperator
 
 RNG = np.random.default_rng(77)
@@ -42,8 +42,7 @@ def dense_A(model, X):
 class TestMatvecOperator:
     def test_matches_dense_matvec(self):
         model, X, y, it_gp = setup(n=300)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         A = dense_A(model, X)
         v = jnp.asarray(RNG.normal(size=300), jnp.float32)
         np.testing.assert_allclose(np.asarray(op(v)), np.asarray(A @ v),
@@ -51,8 +50,7 @@ class TestMatvecOperator:
 
     def test_nontile_sizes(self):
         model, X, y, it_gp = setup(n=257)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         A = dense_A(model, X)
         v = jnp.asarray(RNG.normal(size=257), jnp.float32)
         np.testing.assert_allclose(np.asarray(op(v)), np.asarray(A @ v),
@@ -62,8 +60,7 @@ class TestMatvecOperator:
 class TestCG:
     def test_solves_spd_system(self):
         model, X, y, it_gp = setup(n=256)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         x, it, res = cg_solve(op, y, tol=1e-5, maxiter=2000)
         A = dense_A(model, X)
         ref = jnp.linalg.solve(A.astype(jnp.float64),
@@ -106,8 +103,7 @@ class TestPreconditioner:
         )
 
         model, X, y, it_gp = setup(n=384)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         _, it_plain, _ = cg_solve(op, y, tol=1e-5, maxiter=2000)
         pinv = make_preconditioner(it_gp, 96)
         x_pcg, it_pcg, _ = pcg_solve(op, y, pinv, tol=1e-5, maxiter=2000)
@@ -123,7 +119,7 @@ class TestPreconditioner:
         model, X, y, it_gp = setup(n=256)
         val, alpha, iters = nlml_iterative(
             it_gp, y, jax.random.PRNGKey(1), probes=24,
-            lanczos_iters=40, tm=128, tn=128, precond_rank=64,
+            lanczos_iters=40, precond_rank=64,
             mode="stream")
         dense = float(nlml(model.kernel, model.kernel_params,
                            model.lik_hypers, X, y, model.likelihood))
@@ -133,8 +129,7 @@ class TestPreconditioner:
 class TestMatmat:
     def test_matches_dense_matmat(self):
         model, X, y, it_gp = setup(n=300)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         A = dense_A(model, X)
         V = jnp.asarray(RNG.normal(size=(300, 5)), jnp.float32)
         np.testing.assert_allclose(np.asarray(op.matmat(V)),
@@ -150,8 +145,7 @@ class TestBatchedCG:
         )
 
         model, X, y, it_gp = setup(n=256)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         B = jnp.asarray(RNG.normal(size=(256, 4)), jnp.float32)
         A = dense_A(model, X).astype(jnp.float64)
         ref = jnp.linalg.solve(A, B.astype(jnp.float64))
@@ -174,8 +168,7 @@ class TestBatchedCG:
         )
 
         model, X, y, it_gp = setup(n=256)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         B = jnp.asarray(RNG.normal(size=(256, 3)), jnp.float32)
         Xsol, it = bcg_solve(op.matmat, B, None, tol=1e-12,
                              maxiter=5000)
@@ -250,7 +243,7 @@ class TestFusedValueAndGrad:
         model, X, y, it_gp = setup(n=256)
         k1, k2 = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
         kw = dict(cg_tol=1e-6, cg_maxiter=2000, probes=8,
-                  lanczos_iters=24, precond_rank=48, tm=128, tn=128)
+                  lanczos_iters=24, precond_rank=48)
         # slq_probes pinned to the separate path's probe count so the
         # two logdet estimators see identical Rademacher draws;
         # mode pinned to the streamed operator (the separate-call path)
@@ -281,7 +274,7 @@ class TestMaterializedModes:
 
         model, X, y, it_gp = setup(n=300)
         stream = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias,
-                                it_gp.sn2, tm=128, tn=128)
+                                it_gp.sn2)
         mat = MaterializedOperator(it_gp.Xm, it_gp.sigma, it_gp.bias,
                                    it_gp.sn2)
         V = jnp.asarray(RNG.normal(size=(300, 5)), jnp.float32)
@@ -350,8 +343,7 @@ class TestMaterializedModes:
         model, X, y, it_gp = setup(n=256)
         k1, k2 = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
         kw = dict(cg_tol=1e-6, cg_maxiter=2000, probes=8,
-                  lanczos_iters=24, precond_rank=48, tm=128, tn=128,
-                  chunk=128, slq_probes=8)
+                  lanczos_iters=24, precond_rank=48, chunk=128, slq_probes=8)
         v_g, g_g, _ = nlml_and_grad_iterative(it_gp, y, k1, k2,
                                               mode="gemm", **kw)
         v_s, g_s, _ = nlml_and_grad_iterative(it_gp, y, k1, k2,
@@ -371,7 +363,7 @@ class TestMaterializedModes:
         model, X, y, it_gp = setup(n=256)
         key = jax.random.PRNGKey(4)
         kw = dict(probes=8, cg_tol=1e-6, cg_maxiter=2000, chunk=128,
-                  tm=128, tn=128, precond_rank=48)
+                  precond_rank=48)
         g_g = grad_iterative(it_gp, y, key, mode="gemm", **kw)
         g_s = grad_iterative(it_gp, y, key, mode="stream", **kw)
         for gg, gs in zip(g_g[:3], g_s[:3]):
@@ -392,8 +384,7 @@ class TestMaterializedModes:
         g_c = grad_iterative(it_gp, y, key, mode="chol", probes=8,
                              chunk=64)
         g_s = grad_iterative(it_gp, y, key, mode="stream", probes=8,
-                             chunk=64, cg_tol=1e-7, cg_maxiter=3000,
-                             tm=128, tn=128)
+                             chunk=64, cg_tol=1e-7, cg_maxiter=3000)
         for gc, gs in zip(g_c[:3], g_s[:3]):
             assert float(gc) == pytest.approx(float(gs), rel=2e-3,
                                               abs=1e-2)
@@ -448,8 +439,7 @@ class TestMaterializedModes:
 class TestSLQ:
     def test_logdet_within_tolerance(self):
         model, X, y, it_gp = setup(n=256)
-        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2,
-                            tm=128, tn=128)
+        op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias, it_gp.sn2)
         est = float(slq_logdet(op, 256, jax.random.PRNGKey(0),
                                probes=24, lanczos_iters=40))
         A = dense_A(model, X).astype(jnp.float64)
@@ -462,7 +452,7 @@ class TestIterativeNLML:
         model, X, y, it_gp = setup(n=256)
         val, alpha, iters = nlml_iterative(
             it_gp, y, jax.random.PRNGKey(1), probes=24,
-            lanczos_iters=40, tm=128, tn=128, mode="stream")
+            lanczos_iters=40, mode="stream")
         dense = float(nlml(model.kernel, model.kernel_params,
                            model.lik_hypers, X, y, model.likelihood))
         assert float(val) == pytest.approx(dense, rel=0.02, abs=5.0)
@@ -481,7 +471,7 @@ class TestIterativeNLML:
         gd = jax.grad(dense_obj, argnums=(0, 1, 2))(
             it_gp.sigma, it_gp.bias, it_gp.sn2)
         gi = grad_iterative(it_gp, y, jax.random.PRNGKey(2), probes=16,
-                            chunk=64, tm=128, tn=128, mode="stream")
+                            chunk=64, mode="stream")
         g_sigma, g_bias, g_sn2, _ = gi
         # stochastic trace estimate: require sign + rough magnitude
         # Hutchinson trace estimates carry O(1/sqrt(probes)) noise:
@@ -501,7 +491,7 @@ class TestIterativeFitEngine:
     """optim.fit(engine="iterative") — the matrix-free training route."""
 
     OPTS = dict(probes=16, lanczos_iters=40, cg_tol=1e-5,
-                cg_maxiter=400, chunk=64, tm=128, tn=128)
+                cg_maxiter=400, chunk=64)
 
     def test_value_and_grad_matches_dense(self):
         from gp_ss_ak_tpu.optim.api import make_value_and_grad
@@ -581,7 +571,7 @@ class TestSegmented:
         model, X, y, _ = setup(n=700)
         flat = np.asarray(model.pack(), np.float64)
         opts = dict(seed=0, probes=4, lanczos_iters=10, cg_tol=1e-3,
-                    slq_probes=8, tm=128, tn=128)
+                    slq_probes=8)
         vg_f = make_iterative_value_and_grad(model, X, y,
                                              mode="stream", **opts)
         vg_s = make_segmented_value_and_grad(model, X, y, seg_iters=7,
@@ -607,8 +597,7 @@ class TestSegmented:
 
         model, X, y, _ = setup(n=320)
         fitted, res = fit(model, X, y, engine="iterative", iters=5,
-                          engine_opts=dict(segmented=True, tm=128,
-                                           tn=128, seg_iters=5))
+                          engine_opts=dict(segmented=True, seg_iters=5))
         assert np.isfinite(res.fun)
         assert res.trace[-1] <= res.trace[0]
 
@@ -626,7 +615,7 @@ class TestWhitenedSolve:
         from gp_ss_ak_tpu.ops.matvec import MatvecOperator
 
         op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias,
-                            it_gp.sn2, tm=128, tn=128)
+                            it_gp.sn2)
         L = pivoted_cholesky(it_gp.Xm, it_gp.sigma, it_gp.bias, 64)
         B = jnp.stack([jnp.asarray(y, jnp.float32),
                        jnp.ones_like(jnp.asarray(y, jnp.float32))],
@@ -663,7 +652,7 @@ class TestWhitenedSolve:
 
         model, X, y, it_gp = setup(n=256)
         op = MatvecOperator(it_gp.Xm, it_gp.sigma, it_gp.bias,
-                            it_gp.sn2, tm=128, tn=128)
+                            it_gp.sn2)
         L = pivoted_cholesky(it_gp.Xm, it_gp.sigma, it_gp.bias, 128)
         _x, _it, _rel, _ld, wmm = whitened_solve_info(
             op.matmat, L, it_gp.sn2, jnp.ones((256, 1), jnp.float32),
@@ -706,8 +695,7 @@ class TestWarpedIterative:
 
         model, X, y = self.make()
         assert supports_iterative(model)
-        vg = make_iterative_value_and_grad(model, X, y, tm=128, tn=128,
-                                           chunk=128, probes=16,
+        vg = make_iterative_value_and_grad(model, X, y, chunk=128, probes=16,
                                            cg_tol=1e-6)
         flat = np.asarray(model.pack(), np.float64)
         v, g = vg(flat)
@@ -723,8 +711,7 @@ class TestWarpedIterative:
         )
 
         model, X, y = self.make(256)
-        vg = make_iterative_value_and_grad(model, X, y, tm=128, tn=128,
-                                           chunk=128, probes=64,
+        vg = make_iterative_value_and_grad(model, X, y, chunk=128, probes=64,
                                            cg_tol=1e-7)
         flat = np.asarray(model.pack(), np.float64)
         v0, g = vg(flat)
@@ -751,7 +738,7 @@ def test_segmented_warm_start_fewer_iters_same_answer():
     flat = np.asarray(model.pack(), np.float64)
     flat2 = flat * (1.0 + 1e-3)
     opts = dict(seed=0, probes=4, lanczos_iters=10, cg_tol=1e-5,
-                slq_probes=8, tm=128, tn=128, seg_iters=16)
+                slq_probes=8, seg_iters=16)
 
     cold = make_segmented_value_and_grad(model, X, y,
                                          warm_start=False, **opts)
